@@ -1,0 +1,10 @@
+"""Cost models of the port: ``cpu_mem`` (the reference's active model) and
+``trivial``, selected by name through ``get_cost_model``."""
+
+from poseidon_tpu_torch.costmodel.base import (  # noqa: F401
+    CostMatrices,
+    CostModel,
+    get_cost_model,
+)
+from poseidon_tpu_torch.costmodel.cpu_mem import CpuMemCostModel  # noqa: F401
+from poseidon_tpu_torch.costmodel.trivial import TrivialCostModel  # noqa: F401

@@ -1,0 +1,259 @@
+"""The port's gRPC server: all 13 FirmamentScheduler RPCs.
+
+The wire contract is the reference's (firmament_scheduler.proto:15-45);
+the round underneath is the port's RoundPlanner, solving on the CUDA card
+unless the config asks for the CPU.  Reply-enum fidelity is load-bearing
+(the Poseidon client ``glog.Fatalf``s on unexpected answers), so every
+state-machine answer comes from graph/state.py.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+import threading
+from concurrent import futures
+from typing import Optional
+
+import grpc
+
+from poseidon_tpu_torch.costmodel import get_cost_model
+from poseidon_tpu_torch.graph.instance import RoundPlanner
+from poseidon_tpu_torch.graph.state import ClusterState
+from poseidon_tpu_torch.protos import firmament_pb2 as fpb
+from poseidon_tpu_torch.protos.services import (
+    FIRMAMENT_METHODS,
+    FIRMAMENT_SERVICE,
+    generic_handler,
+)
+from poseidon_tpu_torch.service import converters
+from poseidon_tpu_torch.utils.config import FirmamentTPUConfig, load_config
+
+log = logging.getLogger("poseidon_tpu_torch.server")
+
+
+class FirmamentServicer:
+    """Method-per-RPC servicer bound via the generic handler table."""
+
+    def __init__(self, config: Optional[FirmamentTPUConfig] = None) -> None:
+        self.config = config or FirmamentTPUConfig()
+        planner_kw = dict(
+            gang_scheduling=self.config.gang_scheduling,
+            pod_affinity=self.config.pod_affinity,
+        )
+        state = planner = None
+        path = self.config.checkpoint_path
+        if path and os.path.exists(path):
+            # Restart recovery: placements and solver warm frames come
+            # back, so the first round solves warm.
+            from poseidon_tpu_torch.graph.snapshot import load_checkpoint
+
+            state, planner = load_checkpoint(
+                path, cost_model=get_cost_model(self.config.cost_model),
+                device=self.config.device, **planner_kw,
+            )
+            log.info("restored checkpoint %s: %d machines, %d tasks",
+                     path, len(state.machines), len(state.tasks))
+        self.state = state or ClusterState()
+        self.planner = planner or RoundPlanner(
+            self.state, get_cost_model(self.config.cost_model),
+            device=self.config.device, **planner_kw,
+        )
+        # Schedule() rounds are serialized: the planner's warm-start state
+        # is single-writer.
+        self._schedule_lock = threading.Lock()
+        self._ckpt_write_lock = threading.Lock()
+        self._warmed = False
+
+    # ------------------------------------------------------------- scheduling
+
+    def ensure_precompiled(self) -> float:
+        """Build (or load) the CUDA kernels once, before any round needs
+        them; returns the seconds it took (0 when already done)."""
+        with self._schedule_lock:
+            if self._warmed:
+                return 0.0
+            self._warmed = True
+            secs = self.planner.warm_up()
+            log.info("kernels ready in %.2fs", secs)
+            return secs
+
+    def Schedule(self, request, context):
+        if self.config.precompile:
+            self.ensure_precompiled()
+        with self._schedule_lock:
+            deltas, metrics = self.planner.schedule_round()
+        log.info(
+            "round %d: %d tasks / %d ECs / %d machines -> "
+            "%d place %d preempt %d migrate %d unsched; "
+            "solve %.3fs total %.3fs objective %d (iters %d, bf %d)",
+            metrics.round_index, metrics.num_tasks, metrics.num_ecs,
+            metrics.num_machines, metrics.placed, metrics.preempted,
+            metrics.migrated, metrics.unscheduled, metrics.solve_seconds,
+            metrics.total_seconds, metrics.objective,
+            metrics.iterations, metrics.bf_sweeps,
+        )
+        every = self.config.checkpoint_every_rounds
+        if (
+            self.config.checkpoint_path and every > 0
+            and metrics.round_index % every == every - 1
+        ):
+            self.save_checkpoint()
+        return converters.deltas_to_proto(deltas)
+
+    def save_checkpoint(self) -> None:
+        """Write state + warm frames; failures are logged, never fatal."""
+        if not self.config.checkpoint_path:
+            return
+        from poseidon_tpu_torch.graph.snapshot import (
+            serialize_checkpoint,
+            write_checkpoint,
+        )
+
+        try:
+            with self._schedule_lock:
+                payload = serialize_checkpoint(self.state, self.planner)
+            with self._ckpt_write_lock:
+                write_checkpoint(self.config.checkpoint_path, *payload)
+        except Exception as e:  # noqa: BLE001 - never fatal by contract
+            log.error("checkpoint write failed: %s", e)
+
+    # ----------------------------------------------------------- task lifecycle
+
+    def TaskSubmitted(self, request, context):
+        task = converters.task_info_from_proto(
+            request.task_descriptor, job_id=request.job_descriptor.uuid
+        )
+        return fpb.TaskSubmittedResponse(
+            type=int(self.state.task_submitted(task)))
+
+    def TaskCompleted(self, request, context):
+        reply = self.state.task_completed(int(request.task_uid))
+        return fpb.TaskCompletedResponse(type=int(reply))
+
+    def TaskFailed(self, request, context):
+        reply = self.state.task_failed(int(request.task_uid))
+        return fpb.TaskFailedResponse(type=int(reply))
+
+    def TaskRemoved(self, request, context):
+        reply = self.state.task_removed(int(request.task_uid))
+        return fpb.TaskRemovedResponse(type=int(reply))
+
+    def TaskUpdated(self, request, context):
+        task = converters.task_info_from_proto(
+            request.task_descriptor, job_id=request.job_descriptor.uuid
+        )
+        return fpb.TaskUpdatedResponse(type=int(self.state.task_updated(task)))
+
+    # ----------------------------------------------------------- node lifecycle
+
+    def NodeAdded(self, request, context):
+        machine = converters.machine_info_from_proto(
+            request, default_slots=self.config.max_tasks_per_pu
+        )
+        return fpb.NodeAddedResponse(type=int(self.state.node_added(machine)))
+
+    def NodeFailed(self, request, context):
+        reply = self.state.node_failed(request.resource_uid)
+        return fpb.NodeFailedResponse(type=int(reply))
+
+    def NodeRemoved(self, request, context):
+        reply = self.state.node_removed(request.resource_uid)
+        return fpb.NodeRemovedResponse(type=int(reply))
+
+    def NodeUpdated(self, request, context):
+        machine = converters.machine_info_from_proto(
+            request, default_slots=self.config.max_tasks_per_pu
+        )
+        return fpb.NodeUpdatedResponse(
+            type=int(self.state.node_updated(machine)))
+
+    # ------------------------------------------------------------------- stats
+
+    def AddTaskStats(self, request, context):
+        reply = self.state.add_task_stats(
+            int(request.task_id), converters.task_stats_sample(request)
+        )
+        return fpb.TaskStatsResponse(type=int(reply))
+
+    def AddNodeStats(self, request, context):
+        reply = self.state.add_node_stats(
+            request.resource_id, converters.resource_stats_sample(request)
+        )
+        return fpb.ResourceStatsResponse(type=int(reply))
+
+    # ------------------------------------------------------------------ health
+
+    def Check(self, request, context):
+        return fpb.HealthCheckResponse(status=fpb.SERVING)
+
+
+class FirmamentTPUServer:
+    """Owns the grpc.Server; usable as a context manager."""
+
+    def __init__(
+        self,
+        config: Optional[FirmamentTPUConfig] = None,
+        address: Optional[str] = None,
+        max_workers: int = 16,
+    ) -> None:
+        self.config = config or FirmamentTPUConfig()
+        if address is not None:
+            self.config.listen_address = address
+        self.servicer = FirmamentServicer(config=self.config)
+        self._server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=max_workers)
+        )
+        self._server.add_generic_rpc_handlers(
+            (generic_handler(FIRMAMENT_SERVICE, FIRMAMENT_METHODS,
+                             self.servicer),)
+        )
+        self.port = self._server.add_insecure_port(self.config.listen_address)
+        if self.port == 0:
+            raise RuntimeError(f"could not bind {self.config.listen_address}")
+
+    @property
+    def address(self) -> str:
+        host = self.config.listen_address.rsplit(":", 1)[0]
+        if host in ("0.0.0.0", "[::]", ""):
+            host = "127.0.0.1"
+        return f"{host}:{self.port}"
+
+    def start(self) -> "FirmamentTPUServer":
+        self._server.start()
+        log.info("firmament (torch port) serving on %s", self.address)
+        return self
+
+    def stop(self, grace: Optional[float] = None) -> None:
+        self._server.stop(grace).wait()
+
+    def wait(self) -> None:
+        self._server.wait_for_termination()
+
+    def __enter__(self) -> "FirmamentTPUServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop(grace=0.5)
+
+
+def main(argv=None) -> None:
+    """Process entry point (the analog of the firmament_scheduler binary)."""
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname).1s %(name)s] %(message)s",
+    )
+    cfg = load_config(FirmamentTPUConfig, argv=argv)
+    server = FirmamentTPUServer(config=cfg).start()
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    server.stop(grace=2.0)
+    # Shutdown checkpoint after the server quiesces.
+    server.servicer.save_checkpoint()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,102 @@
+"""Registry of the ``POSEIDON_*`` environment hatches the port reads.
+
+The port's own closed registry (the JAX package keeps its own): every
+hatch is declared once with its kind, default and effect, and the typed
+accessors raise ``KeyError`` on an unregistered name, so a typo'd hatch
+fails loudly instead of silently reading a default.  Accessors read the
+environment at call time, never at import time.
+
+Kinds:
+  bool_on   default ON:  any value other than "0" enables
+  tristate  "1" forces on, "0" forces off, unset defers to the device
+            policy (transport.accel_policy: on when the solve's device is
+            CUDA)
+  int       numeric knob; unparseable values fall back to the default
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+_KINDS = ("bool_on", "tristate", "int")
+
+
+@dataclass(frozen=True)
+class Hatch:
+    name: str
+    kind: str
+    default: str  # string form; "" means device-dependent
+    doc: str
+
+    def __post_init__(self) -> None:
+        if not self.name.startswith("POSEIDON_"):
+            raise ValueError(f"hatch {self.name!r} must be POSEIDON_*")
+        if self.kind not in _KINDS:
+            raise ValueError(f"hatch {self.name}: unknown kind {self.kind!r}")
+
+
+HATCHES: Tuple[Hatch, ...] = (
+    Hatch("POSEIDON_ITER_UNROLL", "int", "",
+          "Push/relabel iterations per host read of the phase status "
+          "(default 4 on CUDA, 1 on CPU)"),
+    Hatch("POSEIDON_HOST_CERT", "bool_on", "1",
+          "Pre-dispatch host certificate: return a start that certifies "
+          "exactly without launching the device solve"),
+
+    Hatch("POSEIDON_ADAPTIVE_BF", "tristate", "",
+          "Excess-decay-adaptive global-update cadence (CUDA default on)"),
+    Hatch("POSEIDON_FUSED", "tristate", "",
+          "Fused ladder kernel for shapes inside the fused gate (CUDA "
+          "default on; 0 runs the plain torch ladder)"),
+    Hatch("POSEIDON_TILED", "tristate", "",
+          "Per-iteration kernel for shapes past the fused gate (CUDA "
+          "default on; 0 runs the plain torch iteration)"),
+
+    Hatch("POSEIDON_MERGE_BANDS", "tristate", "",
+          "Merge compatible size bands into one solve (CUDA default on)"),
+)
+
+_BY_NAME = {h.name: h for h in HATCHES}
+
+
+def hatch(name: str) -> Hatch:
+    """The declaration for ``name``; KeyError on unregistered names."""
+    try:
+        return _BY_NAME[name]
+    except KeyError:
+        raise KeyError(
+            f"unregistered hatch {name!r}: declare it in "
+            "poseidon_tpu_torch/utils/hatches.py"
+        ) from None
+
+
+def hatch_raw(name: str) -> Optional[str]:
+    """The raw environment value (None when unset), read at call time."""
+    hatch(name)
+    return os.environ.get(name)
+
+
+def hatch_bool(name: str) -> bool:
+    h = hatch(name)
+    if h.kind != "bool_on":
+        raise TypeError(f"hatch {name} is {h.kind}, not a bool gate")
+    return os.environ.get(name, h.default) != "0"
+
+
+def hatch_int(name: str, default: Optional[int] = None) -> int:
+    h = hatch(name)
+    if h.kind != "int":
+        raise TypeError(f"hatch {name} is {h.kind}, not an int knob")
+    raw = os.environ.get(name)
+    if raw is not None:
+        try:
+            return int(raw)
+        except ValueError:
+            pass
+    if default is not None:
+        return default
+    if h.default == "":
+        raise TypeError(f"hatch {name} declares no default; pass default=")
+    return int(h.default)
