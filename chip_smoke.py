@@ -40,11 +40,23 @@ MACHINES = 10_000
 TASKS = 100_000
 TASK_SHAPES = 100
 CHURN_ROUNDS = 3
-# Peak rates used for the lower bound on a kernel's time (H100 SXM data
-# sheet): HBM bytes/s, and the fp32 non-tensor rate standing in for the
-# card's int32 ALU rate (the kernels are int32 add/min/max).
+# Peak rates for the lower bound on a kernel's time (H100 SXM data sheet).
+# HBM bytes/s; and the int32 rate: the sheet's 67 TFLOP/s fp32 counts an
+# FMA as two operations on 128 fp32 lanes per SM, and an SM has 64 int32
+# lanes doing one operation per clock each, a quarter of that rate.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 67e12 / 4
+# int32 operations per [E, M] cell, counted from the kernel sources (each
+# add, compare, logical and, select, min, max and floor-divide as one):
+# a push/relabel iteration's three passes over the planes (the row pass
+# with its scan, the column pass, the post-push row pass: pt_rows, pt_cols
+# and pt_rows2 in tiled_iteration.cu, push_sweep in fused_ladder.cu); one
+# Bellman-Ford sweep's row and column passes (global_update); a phase's
+# refine and excess sums.
+OPS_PER_CELL_ITER = 60
+OPS_PER_CELL_BF = 20
+OPS_PER_CELL_PHASE = 10
+NUM_PHASES = 4
 DEVICE = torch.device("cuda")
 
 
@@ -188,11 +200,12 @@ def check_fused(cases) -> list:
         iters, bf = int(sk[o]), int(sk[o + 1])
         ms = _time_cuda(lambda: _run_route(big, vec, scale, "fused"), 3)
         plain_ms = _time_cuda(lambda: _run_route(big, vec, scale, "lax"), 1)
-        # Bytes: C, arc caps, init flows read once, flows written once.
-        nbytes = 4 * 4 * E * M
-        # Operations this run's data needs: ~40 int ops per cell per
-        # push/relabel iteration, ~20 per cell per Bellman-Ford sweep.
-        ops = (40 * iters + 20 * bf) * E * M
+        # Bytes: C, Uem and F read and F written in every push/relabel
+        # iteration, C, Uem and F read in every Bellman-Ford sweep, for the
+        # iterations and sweeps this solve ran.
+        nbytes = 4 * E * M * (4 * iters + 3 * bf)
+        ops = E * M * (OPS_PER_CELL_ITER * iters + OPS_PER_CELL_BF * bf
+                       + OPS_PER_CELL_PHASE * NUM_PHASES)
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
                          bf=bf, ms=ms, plain_ms=plain_ms,
                          bytes=nbytes, ops=ops))
@@ -247,7 +260,7 @@ def check_tiled(cases) -> list:
         plain_ms = _time_cuda(lambda: T._pr_iteration(
             *state, *exc, st, eps=eps, do_relabel=True, **ops), 20)
         nbytes = 4 * 4 * E * M  # C, Uem, F read once; F written once
-        ops_n = 40 * E * M
+        ops_n = OPS_PER_CELL_ITER * E * M
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
                          ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops_n))
         log(f"  B2 {label} [{E}, {M}]: max_abs_err {err}, solve iters "
@@ -512,13 +525,13 @@ def main_path():
 
 
 def kernels_record(fused, tiled, launches):
-    def row(name, source, replaces, cases, n):
+    def row(name, source, replaces, unit, cases, n):
         lead = cases[0]
         bound_bytes = lead["bytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops = lead["ops"] / ALU_OPS_PER_S * 1e3
+        bound_ops = lead["ops"] / INT32_OPS_PER_S * 1e3
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": n, "launch_unit": unit,
             "max_abs_err": max(c["err"] for c in cases),
             "equal": all(c["err"] == 0 for c in cases),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
@@ -528,18 +541,20 @@ def kernels_record(fused, tiled, launches):
             "cases": [{k: c[k] for k in ("label", "shape", "err", "ms",
                                          "plain_ms")}
                       | {"bound_ms": max(c["bytes"] / HBM_BYTES_PER_S,
-                                         c["ops"] / ALU_OPS_PER_S) * 1e3}
+                                         c["ops"] / INT32_OPS_PER_S) * 1e3}
                       for c in cases],
         }
 
     return {"kernels": [
         row("fused_ladder", "poseidon_tpu_torch/ops/csrc/fused_ladder.cu",
-            "poseidon_tpu/ops/transport_fused.py:113", fused,
+            "poseidon_tpu/ops/transport_fused.py:113",
+            "one kernel launch: a whole epsilon ladder", fused,
             launches["fused_ladder"]),
         row("tiled_iteration",
             "poseidon_tpu_torch/ops/csrc/tiled_iteration.cu",
-            "poseidon_tpu/ops/transport_tiled.py:73", tiled,
-            launches["tiled_iteration"]),
+            "poseidon_tpu/ops/transport_tiled.py:73",
+            "one push/relabel iteration: a sequence of five CUDA kernels",
+            tiled, launches["tiled_iteration"]),
     ]}
 
 

@@ -1,12 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``ops/csrc/`` expose plain C entry points, so they build
-with ``nvcc`` alone (no PyTorch headers) into one shared library that
-``ctypes`` loads.  The library is built at first use into
-``build/poseidon_tpu_torch/`` under the repository root, keyed by a hash
-of the sources and flags, so a fresh checkout builds everything from its
-own sources and a second use in the same checkout reuses the build.  Each
-source compiles in its own ``nvcc`` process, all started together.
+with ``nvcc`` alone (no PyTorch headers) into shared libraries that
+``ctypes`` loads.  Each source builds in its own ``nvcc`` process, all
+started together, into a library of its own under
+``build/poseidon_tpu_torch/`` at the repository root, keyed by a hash of
+the sources and flags: a fresh checkout builds everything from its own
+sources and a second use in the same checkout reuses the build.
 
 There is no fallback: a build or a load that fails raises.
 """
@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("fused_ladder.cu", "tiled_iteration.cu")
@@ -64,65 +65,58 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every source in parallel (one nvcc each) and link the
-    shared library; returns its path.  Reuses an existing build of the
-    same sources and flags."""
+def build() -> dict:
+    """Build each source into its own shared library, one ``nvcc -shared``
+    per source, all started together; returns ``{source: path}``.  Reuses
+    an existing build of the same sources and flags."""
     out_dir = build_dir()
-    lib_path = out_dir / f"libposeidon_kernels_{_digest()}.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for src in _SOURCES:
-        obj = out_dir / (src + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
-               str(_CSRC / src)]
-        procs.append((src, obj, subprocess.Popen(
+    tag = _digest()
+    libs = {src: out_dir / f"{Path(src).stem}_{tag}.so" for src in _SOURCES}
+    procs = {}
+    for src, so in libs.items():
+        if so.exists():
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-Xptxas", "-v",
+               "-o", str(so.with_suffix(".tmp")), str(_CSRC / src)]
+        procs[src] = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
+        )
     errors = []
-    for src, _obj, proc in procs:
+    for src, proc in procs.items():
         log, _ = proc.communicate()
-        (out_dir / (src + ".log")).write_text(log)
+        libs[src].with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"{src}:\n{log}")
+        else:
+            os.replace(libs[src].with_suffix(".tmp"), libs[src])
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    tmp = lib_path.with_suffix(".so.tmp")
-    link = subprocess.run(
-        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if link.returncode != 0:
-        raise RuntimeError("nvcc link failed:\n" + link.stdout)
-    os.replace(tmp, lib_path)
-    return lib_path
+    return libs
 
 
 def ptxas_report() -> str:
     """The ``-Xptxas -v`` output of the last build (registers, spills)."""
-    parts = []
-    for src in _SOURCES:
-        p = build_dir() / (src + ".log")
-        if p.exists():
-            parts.append(p.read_text())
-    return "\n".join(parts)
+    logs = (so.with_suffix(".log") for so in build().values())
+    return "\n".join(p.read_text() for p in logs if p.exists())
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+def lib() -> SimpleNamespace:
+    """The kernels' C entry points (built on first use)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            so = ctypes.CDLL(str(build()))
+            libs = build()
             P, I = ctypes.c_void_p, ctypes.c_int
-            so.pt_fused_ladder.argtypes = [P] * 14 + [I, I, P]
-            so.pt_fused_ladder.restype = I
-            so.pt_tiled_iteration.argtypes = [P] * 27 + [I] * 5 + [P]
-            so.pt_tiled_iteration.restype = I
-            _LIB = so
+            fused = ctypes.CDLL(str(libs["fused_ladder.cu"])).pt_fused_ladder
+            fused.argtypes = [P] * 14 + [I, I, P]
+            fused.restype = I
+            tiled = ctypes.CDLL(
+                str(libs["tiled_iteration.cu"])).pt_tiled_iteration
+            tiled.argtypes = [P] * 27 + [I] * 5 + [P]
+            tiled.restype = I
+            _LIB = SimpleNamespace(pt_fused_ladder=fused,
+                                   pt_tiled_iteration=tiled)
         return _LIB
 
 

@@ -219,6 +219,81 @@ def test_planner_coarse_wave_identical(slice_hatches):
     assert any(m_pad == 256 for _, _, m_pad in routes), routes
 
 
+@pytest.mark.parametrize("host_cert", ["1", "0"])
+def test_planner_merged_bands_identical(slice_hatches, monkeypatch,
+                                        host_cert):
+    """The planner under the card's defaults, forced on for both packages:
+    merged size bands, the adaptive global-update cadence and four
+    iterations per host read.  CPU and RAM are slack, so the merge gate
+    opens and several bands go into one solve; the task slots are tight,
+    so the churn rounds' solves run push/relabel iterations."""
+    from poseidon_tpu.costmodel import get_cost_model as j_cost_model
+    from poseidon_tpu.graph.instance import RoundPlanner as JPlanner
+    from poseidon_tpu.graph.state import ClusterState as JState
+    from poseidon_tpu.graph.state import MachineInfo as JMachine
+    from poseidon_tpu.graph.state import TaskInfo as JTask
+    from poseidon_tpu_torch.costmodel import get_cost_model
+    from poseidon_tpu_torch.graph.instance import RoundPlanner
+    from poseidon_tpu_torch.graph.state import ClusterState, MachineInfo
+    from poseidon_tpu_torch.graph.state import TaskInfo
+
+    for k, v in (("POSEIDON_MERGE_BANDS", "1"), ("POSEIDON_ADAPTIVE_BF", "1"),
+                 ("POSEIDON_ITER_UNROLL", "4"),
+                 ("POSEIDON_HOST_CERT", host_cert)):
+        monkeypatch.setenv(k, v)
+    # Four size bands (requests a factor of ~3 apart) over 40 machines.
+    shapes = [(4000, 1 << 22), (1300, 1 << 21), (400, 1 << 20), (120, 1 << 18)]
+    rng = np.random.default_rng(13)
+    pods = []
+    for i in range(300):
+        e = int(rng.integers(0, len(shapes)))
+        pods.append((hash_combine(17, i), f"mb-{e}", *shapes[e]))
+
+    def build(State, Machine, Task):
+        st = State()
+        for i in range(40):
+            st.node_added(Machine(uuid=generate_uuid(f"mb-m{i}"),
+                                  cpu_capacity=(32000, 64000)[i % 2],
+                                  ram_capacity=1 << 28, task_slots=8))
+        for uid, job, cpu, ram in pods:
+            st.task_submitted(Task(uid=uid, job_id=job, cpu_request=cpu,
+                                   ram_request=ram))
+        return st
+
+    js, ts = build(JState, JMachine, JTask), build(ClusterState, MachineInfo,
+                                                   TaskInfo)
+    jp = JPlanner(js, j_cost_model("cpu_mem"))
+    tp = RoundPlanner(ts, get_cost_model("cpu_mem"), device="cpu")
+    group_sizes = []
+    gate = tp._next_band_group
+
+    def spy(*args):
+        n, idx = gate(*args)
+        group_sizes.append(n)
+        return n, idx
+
+    tp._next_band_group = spy
+    iterations = 0
+    for r in range(3):
+        if r:  # churn: remove and resubmit a tenth of the pods
+            for state, Task in ((js, JTask), (ts, TaskInfo)):
+                for uid, job, cpu, ram in pods[r::10]:
+                    state.task_removed(uid)
+                    state.task_submitted(Task(uid=uid, job_id=job,
+                                              cpu_request=cpu,
+                                              ram_request=ram))
+        jd, jm = jp.schedule_round()
+        td, tm = tp.schedule_round()
+        assert [(d.task_id, d.resource_id, int(d.type)) for d in jd] == \
+            [(d.task_id, d.resource_id, int(d.type)) for d in td]
+        for name in COUNTS + ("device_calls", "repair_firings"):
+            assert getattr(jm, name) == getattr(tm, name), (r, name)
+        assert tm.gap_bound == 0.0 and tm.placed > 0
+        iterations += tm.iterations
+    assert max(group_sizes) > 1, group_sizes  # bands merged
+    assert iterations > 0
+
+
 def test_load_reference_checkpoint(slice_hatches, tmp_path):
     """JAX runs two rounds and checkpoints; the port loads that
     checkpoint; round 3 (after churn) is identical in both."""
