@@ -8,9 +8,15 @@ Run from the repository root on a machine with one NVIDIA GPU::
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build: both CUDA kernels built with ``nvcc`` from ``ops/csrc``;
+2. build: both CUDA kernels built with ``nvcc`` from ``ops/csrc``, their
+   ``-Xptxas -v`` register and spill reports, and B1's shared-memory size
+   checked against its Python mirror;
 3. kernels: each kernel against its plain torch version on the card, at
-   the main path's shapes, with exact (zero) tolerance, and timed;
+   the main path's shapes (B1 also at its gate's two extremes), with
+   exact (zero) tolerance, and timed; B1 beside its previous design's
+   time and its one-SM floor (its bound's bytes at the rate one SM reads
+   L2, measured by a probe kernel, or its operations at one SM's share of
+   the int32 rate);
 4. main path: the port's gRPC server answers ``Schedule()`` for a
    10,000-machine / 100,000-pod cluster (one fresh wave, three churn
    rounds; plus a contended 10,000-machine wave if the first wave never
@@ -57,6 +63,10 @@ OPS_PER_CELL_ITER = 60
 OPS_PER_CELL_BF = 20
 OPS_PER_CELL_PHASE = 10
 NUM_PHASES = 4
+# B1's whole-solve times under its previous design (one thread per machine
+# column walking all E rows in sequence), measured by this script on
+# NVIDIA H100 80GB HBM3 at 700.00 W; the gate-extreme cases came later.
+PREVIOUS_B1_MS = {"coarse": 217.697, "churn": 64.346, "contended": 56.311}
 DEVICE = torch.device("cuda")
 
 
@@ -96,10 +106,91 @@ def build_kernels() -> float:
     _kernels.lib()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
-    for line in _kernels.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for src in ("fused_ladder.cu", "tiled_iteration.cu"):
+        for line in _kernels.ptxas_report(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+    check_smem()
     return secs
+
+
+def check_smem() -> None:
+    """B1 sizes its dynamic shared memory in C at launch; the Python
+    mirror that the CPU tests hold to the route's gate must agree with it
+    at every E the gate admits."""
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    so = _kernels.lib()
+    e = 8
+    while TF.fits_vmem(e, 32):
+        c_bytes = so.pt_fused_ladder_smem_bytes(e)
+        if c_bytes != TF.ladder_smem_bytes(e):
+            fail(f"B1 shared memory at E={e}: kernel {c_bytes} bytes, "
+                 f"mirror {TF.ladder_smem_bytes(e)}")
+        e *= 2
+    log(f"  B1 shared memory: {TF.ladder_smem_bytes(8)} to "
+        f"{TF.ladder_smem_bytes(e // 2)} bytes for E = 8 to {e // 2}, "
+        "kernel and mirror agree")
+
+
+# One block streaming a buffer from L2 (16-byte loads that bypass L1):
+# the rate one SM can read L2 at, which floors a one-block kernel.
+_L2_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(1024, 1)
+l2_stream(const int4* __restrict__ src, long n4, int reps, int* out) {
+  int acc = 0;
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll 4
+    for (long i = threadIdx.x; i < n4; i += blockDim.x) {
+      int4 v = __ldcg(src + i);
+      acc += v.x ^ v.y ^ v.z ^ v.w;
+    }
+  }
+  if (acc == 0x7fffffff) out[0] = acc;
+}
+extern "C" int l2_probe(const void* src, long n4, int reps, int* out,
+                        void* stream) {
+  l2_stream<<<1, 1024, 0, (cudaStream_t)stream>>>((const int4*)src, n4,
+                                                  reps, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def one_sm_l2_rate() -> float:
+    """Bytes per second that one 1024-thread block reads from L2, over a
+    512 KB buffer (C, Uem, F and P at [128, 256])."""
+    import ctypes
+
+    from poseidon_tpu_torch.ops import _kernels
+
+    out_dir = _kernels.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "l2_probe.cu"
+    src.write_text(_L2_PROBE_SRC)
+    so = out_dir / "l2_probe.so"
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+                    "-o", str(so), str(src)], check=True, timeout=300)
+    fn = ctypes.CDLL(str(so)).l2_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nbytes, reps = 512 * 1024, 200
+    buf = torch.ones(nbytes // 4, dtype=torch.int32, device=DEVICE)
+    out = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    stream = torch.cuda.current_stream(DEVICE).cuda_stream
+
+    def run():
+        if fn(buf.data_ptr(), nbytes // 16, reps, out.data_ptr(), stream):
+            fail("the L2 probe did not launch")
+
+    ms = _time_cuda(run, 5)
+    rate = nbytes * reps / (ms / 1e3)
+    log(f"  one SM reads L2 at {rate / 1e9:.1f} GB/s (1024 threads, "
+        f"16-byte loads, {nbytes // 1024} KB buffer)")
+    return rate
 
 
 # --------------------------------------------------------------- phase 3
@@ -188,8 +279,12 @@ def _max_err(a_list, b_list) -> int:
     return err
 
 
-def check_fused(cases) -> list:
-    """B1 against the plain ladder: whole-solve outputs at each shape."""
+def check_fused(cases, l2_rate) -> list:
+    """B1 against the plain ladder: whole-solve outputs at each shape,
+    timed beside the previous design's time and the one-SM floor (the
+    bound's bytes at ``l2_rate``, or its operations at one SM's share of
+    the card's int32 rate, whichever is longer)."""
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     rows = []
     for label, big, vec, scale in cases:
         Fk, sk = _run_route(big, vec, scale, "fused")
@@ -206,12 +301,23 @@ def check_fused(cases) -> list:
         nbytes = 4 * E * M * (4 * iters + 3 * bf)
         ops = E * M * (OPS_PER_CELL_ITER * iters + OPS_PER_CELL_BF * bf
                        + OPS_PER_CELL_PHASE * NUM_PHASES)
+        # One SM's floor: the bound's bytes at the rate one SM reads L2,
+        # or its operations at one SM's share of the int32 rate.
+        floor_bytes = nbytes / l2_rate * 1e3
+        floor_ops = ops / (INT32_OPS_PER_S / sms) * 1e3
+        floor_ms = max(floor_bytes, floor_ops)
+        prev = PREVIOUS_B1_MS.get(label)
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
                          bf=bf, ms=ms, plain_ms=plain_ms,
-                         bytes=nbytes, ops=ops))
+                         bytes=nbytes, ops=ops, previous_ms=prev,
+                         one_sm_floor_ms=floor_ms))
         log(f"  B1 {label} [{E}, {M}]: max_abs_err {err}, iters {iters}, "
-            f"bf {bf}, clean {int(sk[o + 2])}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"bf {bf}, clean {int(sk[o + 2])}; kernel {ms:.3f} ms "
+            f"(previous design "
+            f"{'not measured' if prev is None else f'{prev:.3f} ms'}), "
+            f"plain {plain_ms:.3f} ms, one-SM floor {floor_ms:.3f} ms "
+            f"(L2 bytes {floor_bytes:.3f} ms, int32 operations "
+            f"{floor_ops:.3f} ms)")
         if err != 0:
             fail(f"B1 differs from its plain version at {label}")
         if not int(sk[o + 2]):
@@ -274,9 +380,10 @@ def check_tiled(cases) -> list:
 
 
 def kernel_cases():
-    """B1 at the wave's coarse shape, the churn width at the gate's edge
-    and a contended instance; B2 at the wave's padded width, cold and
-    warm, and at the gate's edge."""
+    """B1 at the wave's coarse shape, the churn width at the gate's edge,
+    a contended instance and the gate's two extremes (fewest ECs at the
+    widest plane, most ECs at the narrowest); B2 at the wave's padded
+    width, cold and warm, and at the gate's edge."""
     fused = []
     for label, (E, M), kw in (
         ("coarse", (128, 256), dict(supply_lo=500, supply_hi=1500,
@@ -285,6 +392,10 @@ def kernel_cases():
                                     cap_lo=1, cap_hi=12)),
         ("contended", (64, 1024), dict(supply_lo=40, supply_hi=120,
                                        cap_lo=1, cap_hi=6)),
+        ("wide", (8, 20480), dict(supply_lo=500, supply_hi=1500,
+                                  cap_lo=1, cap_hi=12)),
+        ("tall", (1024, 128), dict(supply_lo=1, supply_hi=9,
+                                   cap_lo=10, cap_hi=60)),
     ):
         inst = _instance(E, M, SEED, **kw)
         fused.append((label,) + _pack(*inst))
@@ -312,7 +423,7 @@ def kernel_cases():
 def kernel_phase():
     fused_cases, tiled_cases = kernel_cases()
     log("kernels: B1 fused ladder vs plain ladder")
-    fused = check_fused(fused_cases)
+    fused = check_fused(fused_cases, one_sm_l2_rate())
     log("kernels: B2 per-iteration kernels vs plain iteration")
     tiled = check_tiled(tiled_cases)
     return fused, tiled
@@ -539,7 +650,8 @@ def kernels_record(fused, tiled, launches):
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None,
             "cases": [{k: c[k] for k in ("label", "shape", "err", "ms",
-                                         "plain_ms")}
+                                         "plain_ms", "previous_ms",
+                                         "one_sm_floor_ms") if k in c}
                       | {"bound_ms": max(c["bytes"] / HBM_BYTES_PER_S,
                                          c["ops"] / INT32_OPS_PER_S) * 1e3}
                       for c in cases],

@@ -95,10 +95,11 @@ def build() -> dict:
     return libs
 
 
-def ptxas_report() -> str:
-    """The ``-Xptxas -v`` output of the last build (registers, spills)."""
-    logs = (so.with_suffix(".log") for so in build().values())
-    return "\n".join(p.read_text() for p in logs if p.exists())
+def ptxas_report(source: str) -> str:
+    """The ``-Xptxas -v`` output (registers, spills) of the last build of
+    ``source``, e.g. ``"fused_ladder.cu"``."""
+    log = build()[source].with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def lib() -> SimpleNamespace:
@@ -108,14 +109,19 @@ def lib() -> SimpleNamespace:
         if _LIB is None:
             libs = build()
             P, I = ctypes.c_void_p, ctypes.c_int
-            fused = ctypes.CDLL(str(libs["fused_ladder.cu"])).pt_fused_ladder
+            ladder = ctypes.CDLL(str(libs["fused_ladder.cu"]))
+            fused = ladder.pt_fused_ladder
             fused.argtypes = [P] * 14 + [I, I, P]
             fused.restype = I
+            smem = ladder.pt_fused_ladder_smem_bytes
+            smem.argtypes = [I]
+            smem.restype = ctypes.c_size_t
             tiled = ctypes.CDLL(
                 str(libs["tiled_iteration.cu"])).pt_tiled_iteration
             tiled.argtypes = [P] * 27 + [I] * 5 + [P]
             tiled.restype = I
             _LIB = SimpleNamespace(pt_fused_ladder=fused,
+                                   pt_fused_ladder_smem_bytes=smem,
                                    pt_tiled_iteration=tiled)
         return _LIB
 

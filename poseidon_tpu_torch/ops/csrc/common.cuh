@@ -4,11 +4,13 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
 #define PT_NEG (-(1 << 30))
 #define PT_POS (1 << 30)
 #define PT_NEG_HALF (-(1 << 29))
 #define PT_INF_COST (1 << 28)
 #define PT_DINF (1 << 24)
+#define PT_CLOSED (-2147483647 - 1)  // INT_MIN: marks an arc that is not open
 #define PT_EXCESS_SAT 0x7fffffff
 #define PT_EXCESS_SAT_THRESH (1LL << 30)
 #define PT_NUM_PHASES 4
@@ -19,6 +21,34 @@ __device__ __forceinline__ int pt_floordiv(int a, int b) {
   int q = a / b;
   if ((a % b != 0) && (a < 0)) --q;
   return q;
+}
+
+// Floor division by a divisor that stays fixed for many calls (one
+// epsilon phase), as a multiply-high by a precomputed magic number
+// (Granlund and Montgomery, "Division by invariant integers using
+// multiplication", 1994, fig. 4.1) instead of the card's emulated integer
+// divide.  Exact for every int32 dividend and every divisor 1 <= d < 2^31:
+// it returns pt_floordiv(a, d) bit for bit.
+struct PtDivisor {
+  unsigned magic;
+  int sh1, sh2;
+  __device__ explicit PtDivisor(int d) {
+    int l = 32 - __clz(d - 1);  // ceil(log2(d))
+    unsigned long long span = (1ull << l) - (unsigned long long)d;
+    magic = (unsigned)(((span << 32) / (unsigned long long)d) + 1);
+    sh1 = min(l, 1);
+    sh2 = max(l - 1, 0);
+  }
+};
+
+__device__ __forceinline__ int pt_floordiv(int a, const PtDivisor& d) {
+  // floor(a / d) = a >= 0 ? a / d : -1 - (-1 - a) / d, with the unsigned
+  // quotient n / d of n = a ^ sign computed by the magic number.
+  int sign = a >> 31;
+  unsigned n = (unsigned)(a ^ sign);
+  unsigned t = __umulhi(d.magic, n);
+  unsigned q = (t + ((n - t) >> d.sh1)) >> d.sh2;
+  return sign ^ (int)q;
 }
 
 // _relabel_to: new potential = max candidate - eps, moving only down.
@@ -52,16 +82,42 @@ struct PtOr {
   template <typename T> __device__ T operator()(T a, T b) const { return a | b; }
 };
 
+// Warp shuffles of a value made of whole 32-bit words (int, long long, or
+// a small struct of such fields), one shuffle per word.
+template <typename T>
+__device__ __forceinline__ T pt_shfl_down(T v, int o) {
+  static_assert(sizeof(T) % 4 == 0, "shuffled values are whole 32-bit words");
+  int w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __shfl_down_sync(PT_FULL, w[i], o);
+  memcpy(&v, w, sizeof(T));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T pt_shfl_idx(T v, int src) {
+  static_assert(sizeof(T) % 4 == 0, "shuffled values are whole 32-bit words");
+  int w[sizeof(T) / 4];
+  memcpy(w, &v, sizeof(T));
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); ++i) w[i] = __shfl_sync(PT_FULL, w[i], src);
+  memcpy(&v, w, sizeof(T));
+  return v;
+}
+
 template <typename T, typename Op>
 __device__ __forceinline__ T pt_warp_reduce(T v, Op op) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(PT_FULL, v, o));
-  return __shfl_sync(PT_FULL, v, 0);
+  for (int o = 16; o > 0; o >>= 1) v = op(v, pt_shfl_down(v, o));
+  return pt_shfl_idx(v, 0);
 }
 
 // Block-wide reduction; every thread of the block must call it and gets
 // the result.  ``scratch`` holds at least 32 elements of T.  blockDim.x is
-// a multiple of 32.
+// a multiple of 32.  T may be a small struct whose fields ``op`` combines
+// each by its own operator: one such call replaces back-to-back reductions
+// (four barriers each).
 template <typename T, typename Op>
 __device__ T pt_block_reduce(T v, Op op, T identity, T* scratch) {
   int lane = threadIdx.x & 31, w = threadIdx.x >> 5;

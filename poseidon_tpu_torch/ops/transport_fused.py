@@ -28,6 +28,16 @@ from poseidon_tpu_torch.ops.transport import (
 # The reference's working-set gate: aligned [E, M] elements.
 VMEM_ELEM_BUDGET = 160 * 1024
 
+# B1's dynamic shared memory, as ``csrc/fused_ladder.cu`` sizes it at
+# launch (``ladder_smem_bytes``, exported as
+# ``pt_fused_ladder_smem_bytes``): a 1 KB slot for the block's scalars and
+# reduction scratch, the row and column stages' int32 partials [4][1024
+# threads], and pe with the two Bellman-Ford distance buffers, [E] int32
+# each.  A block may use at most 227 KB on the H100.
+SMEM_SCALAR_BYTES = 1024
+SMEM_PART_INTS = 4 * 1024
+SMEM_LIMIT_BYTES = 232_448
+
 
 def _kernel_shape(e_pad: int, m_pad: int):
     """The reference kernel's aligned operand shape (rows to 8, lanes to
@@ -40,6 +50,11 @@ def fits_vmem(e_pad: int, m_pad: int) -> bool:
     return ek * mk <= VMEM_ELEM_BUDGET
 
 
+def ladder_smem_bytes(e_pad: int) -> int:
+    """B1's dynamic shared memory in bytes for ``e_pad`` EC rows."""
+    return SMEM_SCALAR_BYTES + 4 * (SMEM_PART_INTS + 3 * e_pad)
+
+
 def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor):
     """Launch B1 on prepared operands; updates the flow/price state in
     place and returns the int32 stats ``[iters, bf, clean,
@@ -50,7 +65,7 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor):
     so = _kernels.lib()
     ck = _kernels.check
     stats = torch.empty(3 + NUM_PHASES, dtype=I32, device=dev)
-    ws = torch.empty(E * M + 11 * E + 6 * M, dtype=I32, device=dev)
+    ws = torch.empty(3 * E * M + 5 * E + 6 * M, dtype=I32, device=dev)
     args = [
         ck(ops["C"], "C", (E, M), dev), ck(ops["U"], "U", (E,), dev),
         ck(ops["supply"], "supply", (E,), dev),

@@ -76,6 +76,24 @@ def test_failed_launch_raises():
         _kernels.launch_check(2, "fused_ladder")
 
 
+def test_fused_ladder_shared_memory_covers_the_gate():
+    """B1 holds pe and the two Bellman-Ford distance buffers ([E] int32
+    each) and its column partials in dynamic shared memory sized from E:
+    at every padded shape the route's gate admits, that size covers them
+    and fits one H100 block (227 KB)."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    m_pads = sorted({T.bucket_size(n) for n in range(1, 41_000)})
+    e_pads = [8 << k for k in range(10)]
+    admitted = [(e, m) for e in e_pads for m in m_pads if TF.fits_vmem(e, m)]
+    assert (8, 20480) in admitted and (1024, 128) in admitted
+    assert max(e for e, _ in admitted) == 1024
+    assert max(m for _, m in admitted) == 20480
+    for e, _m in admitted:
+        need = 4 * (3 * e + TF.SMEM_PART_INTS)
+        assert need < TF.ladder_smem_bytes(e) <= TF.SMEM_LIMIT_BYTES
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -84,11 +102,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["fused", "tiled"])
-def test_kernel_matches_plain_on_card(cuda_device, impl):
+@pytest.mark.parametrize("impl,E,M", [
+    ("fused", 64, 1024),
+    # B1's column tiles (32 columns, one row segment per warp) at their
+    # edges: E and M not multiples of 32, the gate's two extremes, and the
+    # wave's coarse shape.
+    ("fused", 40, 300),
+    ("fused", 64, 1000),
+    ("fused", 8, 20480),
+    ("fused", 1024, 128),
+    ("fused", 128, 256),
+    ("tiled", 64, 1024),
+])
+def test_kernel_matches_plain_on_card(cuda_device, impl, E, M):
     """Each kernel's whole solve against the plain ladder on the card:
     every output field bit-equal, and the kernel actually launched."""
-    big, vec, scale = _packed(64, 1024, 3)
+    big, vec, scale = _packed(E, M, 3)
     key = "fused_ladder" if impl == "fused" else "tiled_iteration"
     n0 = _kernels.LAUNCHES[key]
     F, small = T._solve_device_packed(big, vec, max_iter=8192, scale=scale,
