@@ -66,6 +66,7 @@ NUM_PHASES = 4
 # B1's whole-solve times under its previous design (one thread per machine
 # column walking all E rows in sequence), measured by this script on
 # NVIDIA H100 80GB HBM3 at 700.00 W; the gate-extreme cases came later.
+# Printed beside each case's time for comparison, never in the record.
 PREVIOUS_B1_MS = {"coarse": 217.697, "churn": 64.346, "contended": 56.311}
 DEVICE = torch.device("cuda")
 
@@ -309,12 +310,11 @@ def check_fused(cases, l2_rate) -> list:
         prev = PREVIOUS_B1_MS.get(label)
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
                          bf=bf, ms=ms, plain_ms=plain_ms,
-                         bytes=nbytes, ops=ops, previous_ms=prev,
-                         one_sm_floor_ms=floor_ms))
+                         bytes=nbytes, ops=ops, one_sm_floor_ms=floor_ms))
         log(f"  B1 {label} [{E}, {M}]: max_abs_err {err}, iters {iters}, "
             f"bf {bf}, clean {int(sk[o + 2])}; kernel {ms:.3f} ms "
-            f"(previous design "
-            f"{'not measured' if prev is None else f'{prev:.3f} ms'}), "
+            f"(previous design, recorded, not this run: "
+            f"{'none' if prev is None else f'{prev:.3f} ms'}), "
             f"plain {plain_ms:.3f} ms, one-SM floor {floor_ms:.3f} ms "
             f"(L2 bytes {floor_bytes:.3f} ms, int32 operations "
             f"{floor_ops:.3f} ms)")
@@ -650,8 +650,8 @@ def kernels_record(fused, tiled, launches):
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None,
             "cases": [{k: c[k] for k in ("label", "shape", "err", "ms",
-                                         "plain_ms", "previous_ms",
-                                         "one_sm_floor_ms") if k in c}
+                                         "plain_ms", "one_sm_floor_ms")
+                       if k in c}
                       | {"bound_ms": max(c["bytes"] / HBM_BYTES_PER_S,
                                          c["ops"] / INT32_OPS_PER_S) * 1e3}
                       for c in cases],

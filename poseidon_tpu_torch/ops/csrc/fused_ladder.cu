@@ -76,11 +76,6 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-// Stages timed by PT_STAGE: refine, excesses, entering state, push row
-// pass, sink row, push column pass, post-push rows, sink relabel inputs,
-// local relabel, global-update arc lengths, sweep rows and columns, sweep
-// sink, price update (chip_profile.py names them in this order).
-constexpr int kStages = 13;
 
 struct Planes {
   const int* C;    // [E, M] scaled costs, PT_INF_COST = inadmissible (read-only)
@@ -122,30 +117,7 @@ struct Shared {
   int exc_t;
   int hadm_t;  // sink relabel inputs of the current iteration
   int cand_t;
-#ifdef PT_STAGE_CLOCKS
-  long long clocks[kStages];
-  long long clock_last;
-#endif
 };
-
-// Stage clocks, for profiling only (chip_profile.py): built with
-// -DPT_STAGE_CLOCKS, PT_STAGE(i) adds a barrier and thread 0 adds the SM
-// clocks since the previous mark to stage i; the kernel writes the totals
-// as int64 after the 7 int32 stats (at stats + 8).  Built without it, as
-// the port builds it, PT_STAGE is empty.
-#ifdef PT_STAGE_CLOCKS
-#define PT_STAGE(i)                                   \
-  do {                                                \
-    __syncthreads();                                  \
-    if (threadIdx.x == 0) {                           \
-      long long t_ = clock64();                       \
-      s.clocks[i] += t_ - s.clock_last;               \
-      s.clock_last = t_;                              \
-    }                                                 \
-  } while (0)
-#else
-#define PT_STAGE(i) do {} while (0)
-#endif
 
 // Dynamic shared memory: Shared | part | pe[E] | de0[E] | de1[E].
 constexpr int kSharedBytes = 1024;
@@ -348,7 +320,6 @@ __device__ int global_update(const Planes& p, int eps, int bf_max, Shared& s) {
   for (int m = threadIdx.x; m < M; m += kThreads) dm[m] = p.exc_m[m] < 0 ? 0 : PT_DINF;
   int dt = s.exc_t < 0 ? 0 : PT_DINF;
   __syncthreads();
-  PT_STAGE(9);
   // Row and column minima: segments of each line, finished per line.
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const RowUnits ru(E, M);
@@ -422,7 +393,6 @@ __device__ int global_update(const Planes& p, int eps, int bf_max, Shared& s) {
           }
         }
       }
-      PT_STAGE(10);
       // Sink: via reverse machine arcs and reverse fallback arcs.  One
       // fused reduction carries the sink minimum and the change flag; its
       // barriers also publish de_n and dm_n for the next sweep.
@@ -432,7 +402,6 @@ __device__ int global_update(const Planes& p, int eps, int bf_max, Shared& s) {
       for (int e = threadIdx.x; e < E; e += kThreads)
         if (p.Ffb[e] > 0) tb = min(tb, pt_floordiv(-(__ldg(p.U + e) + p.pe[e] - pt), dv) + 1 + de[e]);
       red = pt_block_reduce(Sweep{tb, any}, SweepOp(), Sweep{PT_DINF, 0}, scratch<Sweep>(s));
-      PT_STAGE(11);
       int dt_n = min(dt, red.tb);
       if (dt_n != dt) dt_moved = true;
       dt = dt_n;
@@ -465,7 +434,6 @@ __device__ int global_update(const Planes& p, int eps, int bf_max, Shared& s) {
     }
   }
   __syncthreads();
-  PT_STAGE(12);
   return sweeps;
 }
 
@@ -542,7 +510,6 @@ __device__ void push_sweep(const Planes& p, int total, Shared& s) {
       fb_finish(e, pushed);
     }
   }
-  PT_STAGE(3);
   // Sink row over [machines, ECs] (pre-push Fmt / Ffb): each thread takes
   // a contiguous run of the row, and one block scan of the runs' sums
   // gives each run its carry.
@@ -568,7 +535,6 @@ __device__ void push_sweep(const Planes& p, int total, Shared& s) {
     });
   }
   __syncthreads();
-  PT_STAGE(4);
   // Machine columns: the sink arc first, then reverse arcs in EC order;
   // apply both sides' pushes and gather the column relabel candidates.
   // With segs > 1 the reverse-arc prefix down a column is a two-pass
@@ -655,7 +621,6 @@ __device__ void push_sweep(const Planes& p, int total, Shared& s) {
     }
   }
   __syncthreads();
-  PT_STAGE(5);
   // EC rows, post-push: fallback flow, excess, relabel candidates.  Each
   // row unit gathers its new flows' sum, relabel candidate and
   // admissibility (the Sink fields: sum, or, max) in one warp reduction.
@@ -703,7 +668,6 @@ __device__ void push_sweep(const Planes& p, int total, Shared& s) {
     }
   }
   __syncthreads();
-  PT_STAGE(6);
   // Sink: new excess and relabel candidates (old prices, new flows), in
   // one fused reduction.
   Sink k{0, 0, PT_NEG};
@@ -727,7 +691,6 @@ __device__ void push_sweep(const Planes& p, int total, Shared& s) {
     s.cand_t = k.cand;
   }
   __syncthreads();
-  PT_STAGE(7);
 }
 
 __device__ void local_relabel(const Planes& p, int eps, Shared& s) {
@@ -738,7 +701,6 @@ __device__ void local_relabel(const Planes& p, int eps, Shared& s) {
   __syncthreads();
   if (threadIdx.x == 0) s.pt = pt_relabel(s.cand_t, s.hadm_t != 0, s.exc_t, s.pt, eps);
   __syncthreads();
-  PT_STAGE(8);
 }
 
 // knobs: [eps_0..eps_3, max_iter, max_iter_total, global_every, bf_max,
@@ -761,12 +723,6 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
   const int global_every = knobs[6], bf_max = knobs[7];
   const int total = knobs[8], adaptive = knobs[9];
   if (threadIdx.x == 0) s.pt = p.pt[0];
-#ifdef PT_STAGE_CLOCKS
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) s.clocks[i] = 0;
-    s.clock_last = clock64();
-  }
-#endif
   __syncthreads();
   int tot_it = 0, tot_bf = 0;
   for (int k = 0; k < PT_NUM_PHASES; ++k) {
@@ -791,9 +747,7 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
       }
       __syncthreads();
     }
-    PT_STAGE(0);
     excesses(p, total, s);
-    PT_STAGE(1);
     int it = 0, bf = 0;
     int next_gu = 0, gap = global_every, last_exc = 0;
     while (true) {
@@ -811,7 +765,6 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
         en.any |= x > 0;
       }
       en = pt_block_reduce(en, EnterOp(), Enter{0, 0}, scratch<Enter>(s));
-      PT_STAGE(2);
       const int exc_t = s.exc_t;
       bool active = (en.any || exc_t > 0) && it < max_iter && tot_it + it < max_iter_total;
       if (!active) break;
@@ -844,9 +797,6 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
     stats[1] = tot_bf;
     stats[2] = (nz == 0 && s.exc_t == 0) ? 1 : 0;
     p.pt[0] = s.pt;
-#ifdef PT_STAGE_CLOCKS
-    for (int i = 0; i < kStages; ++i) reinterpret_cast<long long*>(stats + 8)[i] = s.clocks[i];
-#endif
   }
 }
 

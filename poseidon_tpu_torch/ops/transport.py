@@ -1939,7 +1939,7 @@ def solve_transport(
     else:
         impl = "lax"
     _Telemetry.routes[(impl, E_pad, M_pad)] += 1
-    with _stage("solve.device"):
+    with _stage("solve.device"), _stage(f"solve.device.{impl}"):
         F_dev, small = _solve_device_packed(
             big, vec, max_iter=max_iter_per_phase, scale=int(scale),
             impl=impl, device=dev,

@@ -36,7 +36,6 @@ VMEM_ELEM_BUDGET = 160 * 1024
 # each.  A block may use at most 227 KB on the H100.
 SMEM_SCALAR_BYTES = 1024
 SMEM_PART_INTS = 4 * 1024
-SMEM_LIMIT_BYTES = 232_448
 
 
 def _kernel_shape(e_pad: int, m_pad: int):
