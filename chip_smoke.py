@@ -8,24 +8,36 @@ Run from the repository root on a machine with one NVIDIA GPU::
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build: both CUDA kernels built with ``nvcc`` from ``ops/csrc``, their
-   ``-Xptxas -v`` register and spill reports, and B1's shared-memory size
-   checked against its Python mirror;
+2. build: the three CUDA sources built with ``nvcc`` from ``ops/csrc``
+   (one process each, all started together), their ``-Xptxas -v``
+   register and spill reports, and B1's shared-memory size checked
+   against its Python mirror;
 3. kernels: each kernel against its plain torch version on the card, at
-   the main path's shapes (B1 also at its gate's two extremes), with
-   exact (zero) tolerance, and timed; B1 beside its previous design's
-   time and its one-SM floor (its bound's bytes at the rate one SM reads
-   L2, measured by a probe kernel, or its operations at one SM's share of
-   the int32 rate);
+   the main path's shapes (B1 also at its gate's two extremes, B2 also at
+   a ragged shape), with exact (zero) tolerance, and timed; B1 beside its
+   previous design's time and its one-SM floor (its bound's bytes at the
+   rate one SM reads L2, measured by a probe kernel, or its operations at
+   one SM's share of the int32 rate); B2 with the CUDA kernels it
+   launches per iteration (at most 3); the global update on mid-solve
+   states covering its three exits and both launch plans (length tiles
+   in shared memory, length planes in the workspace), with no host read
+   and its bound counted from each input read once;
 4. main path: the port's gRPC server answers ``Schedule()`` for a
    10,000-machine / 100,000-pod cluster (one fresh wave, three churn
    rounds; plus a contended 10,000-machine wave if the first wave never
-   reached the per-iteration kernel); every round must certify, both
-   kernels' launch counts must rise, and the same script with the plain
-   versions forced must produce byte-identical deltas.
+   reached the per-iteration kernel); every round must certify, every
+   kernel's launch count must rise (the wave's per-iteration route must
+   run the global-update kernel, with no host read, and at most 3 CUDA
+   kernels per iteration), the route's split by stage is printed, and
+   the same script with the plain versions forced must produce
+   byte-identical deltas.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``.
+record and ``{"ok": true, "device": {...}}``.  ``--compare N`` prints,
+as JSON lines, one B2 iteration's device time at each B2 kernel case and
+then the per-iteration route's split of each of N fresh-wave drives (no
+churn, no plain run); run in two trees in turn, it compares them in one
+call.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -54,14 +67,20 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 # int32 operations per [E, M] cell, counted from the kernel sources (each
 # add, compare, logical and, select, min, max and floor-divide as one):
-# a push/relabel iteration's three passes over the planes (the row pass
-# with its scan, the column pass, the post-push row pass: pt_rows, pt_cols
-# and pt_rows2 in tiled_iteration.cu, push_sweep in fused_ladder.cu); one
-# Bellman-Ford sweep's row and column passes (global_update); a phase's
-# refine and excess sums.
+# a push/relabel iteration's passes over the planes (push_sweep in
+# fused_ladder.cu; the same pushes, excess sums and relabels in
+# tiled_iteration.cu); one Bellman-Ford sweep of B1 (global_update in
+# fused_ladder.cu, counted with the arc lengths recomputed in the sweep);
+# a phase's refine and excess sums.
 OPS_PER_CELL_ITER = 60
 OPS_PER_CELL_BF = 20
 OPS_PER_CELL_PHASE = 10
+# The route's global update (global_update.cu) computes each arc's two
+# lengths once per update (the reduced cost, two floor-divides, the
+# closed-arc tests and selects), then per cell and sweep does two
+# relaxations (a closed-arc test, an add, a select and a min each).
+OPS_PER_CELL_GU_LENGTHS = 15
+OPS_PER_CELL_GU_SWEEP = 8
 NUM_PHASES = 4
 # B1's whole-solve times under its previous design (one thread per machine
 # column walking all E rows in sequence), measured by this script on
@@ -107,7 +126,7 @@ def build_kernels() -> float:
     _kernels.lib()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
-    for src in ("fused_ladder.cu", "tiled_iteration.cu"):
+    for src in _kernels._SOURCES:
         for line in _kernels.ptxas_report(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
@@ -268,6 +287,29 @@ def _time_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def _time_device(fn, reps):
+    """Device milliseconds per call of ``fn``: a sleep kernel holds the
+    stream while the host enqueues all ``reps`` calls, so the events time
+    the device alone.  Also returns the host's enqueue milliseconds per
+    call."""
+    fn()
+    if DEVICE.type != "cuda":  # rehearsal on the CPU: host clock
+        ms = _time_cuda(fn, reps)
+        return ms, ms
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    t0.record()
+    h = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - h) * 1000 / reps
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps, host_ms
+
+
 def _max_err(a_list, b_list) -> int:
     err = 0
     for a, b in zip(a_list, b_list):
@@ -325,57 +367,219 @@ def check_fused(cases, l2_rate) -> list:
     return rows
 
 
-def check_tiled(cases) -> list:
-    """B2 against the plain iteration: whole solves through both, plus one
-    iteration timed on the prepared state."""
+def _prepared(big, vec, scale):
+    """The prepared device operands and state of a packed solve, and its
+    epsilon schedule."""
     from poseidon_tpu_torch.ops import transport as T
-    from poseidon_tpu_torch.ops.transport_tiled import tiled_iteration
+
+    E, M = big.shape[1:]
+    bd = torch.from_numpy(big).to(DEVICE)
+    vd = torch.from_numpy(vec).to(DEVICE)
+    sup, cap, uns = vd[:E], vd[E:E + M], vd[E + M:2 * E + M]
+    prices = vd[2 * E + M:3 * E + 2 * M + 1]
+    fb = vd[3 * E + 2 * M + 1:4 * E + 2 * M + 1]
+    ops, state = T._prepare_operands(
+        bd[0], sup, cap, uns, bd[1], prices, bd[2], fb, scale=scale)
+    ops["total"] = int(vec[:E].astype(np.int64).sum())
+    o = 4 * E + 2 * M + 1
+    return ops, state, [int(x) for x in vec[o:o + NUM_PHASES]]
+
+
+def _b2_kernel_count():
+    """CUDA kernels launched so far by B2's library (None off the card)."""
+    from poseidon_tpu_torch.ops import _kernels
+
+    if DEVICE.type != "cuda":
+        return None
+    return _kernels.lib().pt_tiled_iteration_kernels()
+
+
+def _b2_start(big, vec, scale):
+    """A B2 case's operands, its first iteration's arguments (the prepared
+    state, its excesses and phase status) and the first phase's epsilon."""
+    from poseidon_tpu_torch.ops import transport as T
+
+    ops, state, eps_sched = _prepared(big, vec, scale)
+    exc = T._excesses(*state[:3], supply=ops["supply"], total=ops["total"])
+    st = T._phase_status(*exc, torch.zeros(1, dtype=torch.int32,
+                                            device=DEVICE))
+    return ops, (*state, *exc, st), eps_sched[0]
+
+
+B2_REPS = 20
+
+
+def _time_b2(step, ops, args, eps):
+    """One B2 iteration (with the relabel) through ``step``, called
+    ``B2_REPS`` times after one warm-up call as one object is in a solve:
+    device ms and host enqueue ms per call (``_time_device``)."""
+    return _time_device(
+        lambda: step(*args, eps=eps, do_relabel=True, **ops), B2_REPS)
+
+
+def check_tiled(cases) -> list:
+    """B2 against the plain iteration: whole solves through both (their
+    global updates through the global-update kernel and the plain update),
+    plus one iteration from the prepared state, with and without the
+    relabel, timed on the device (one object for all calls, as in a
+    solve) with the host's enqueue time and the CUDA kernels it
+    launched."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops.transport_tiled import TiledIteration
 
     rows = []
-    dev = DEVICE
     for label, big, vec, scale in cases:
         Fk, sk = _run_route(big, vec, scale, "tiled")
         Fp, sp = _run_route(big, vec, scale, "lax")
         err = _max_err([Fk, sk], [Fp, sp])
         E, M = big.shape[1:]
         o = E + E + M + 1
-        iters = int(sk[o])
-        # One iteration, both versions, from the same prepared state.
-        bd = torch.from_numpy(big).to(dev)
-        vd = torch.from_numpy(vec).to(dev)
-        sup, cap, uns = vd[:E], vd[E:E + M], vd[E + M:2 * E + M]
-        prices = vd[2 * E + M:3 * E + 2 * M + 1]
-        fb = vd[3 * E + 2 * M + 1:4 * E + 2 * M + 1]
-        ops, state = T._prepare_operands(
-            bd[0], sup, cap, uns, bd[1], prices, bd[2], fb, scale=scale)
-        total = int(vec[:E].astype(np.int64).sum())
-        ops["total"] = total
-        exc = T._excesses(*state[:3], supply=sup, total=total)
-        st = T._phase_status(*exc, torch.zeros(1, dtype=torch.int32,
-                                                device=dev))
-        eps = int(vec[4 * E + 2 * M + 1])
+        iters, bf = int(sk[o]), int(sk[o + 1])
+        ops, args, eps = _b2_start(big, vec, scale)
         for relabel in (True, False):
-            a = tiled_iteration(*state, *exc, st, eps=eps,
-                                do_relabel=relabel, **ops)
-            b = T._pr_iteration(*state, *exc, st, eps=eps,
-                                do_relabel=relabel, **ops)
+            a = TiledIteration()(*args, eps=eps, do_relabel=relabel, **ops)
+            b = T._pr_iteration(*args, eps=eps, do_relabel=relabel, **ops)
             err = max(err, _max_err([t.cpu().numpy() for t in a],
                                     [t.cpu().numpy() for t in b]))
-        ms = _time_cuda(lambda: tiled_iteration(
-            *state, *exc, st, eps=eps, do_relabel=True, **ops), 20)
+        k0 = _b2_kernel_count()
+        ms, host_ms = _time_b2(TiledIteration(), ops, args, eps)
+        per_iter = (None if k0 is None
+                    else (_b2_kernel_count() - k0) / (B2_REPS + 1))
         plain_ms = _time_cuda(lambda: T._pr_iteration(
-            *state, *exc, st, eps=eps, do_relabel=True, **ops), 20)
+            *args, eps=eps, do_relabel=True, **ops), 20)
         nbytes = 4 * 4 * E * M  # C, Uem, F read once; F written once
         ops_n = OPS_PER_CELL_ITER * E * M
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
-                         ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops_n))
+                         bf=bf, ms=ms, plain_ms=plain_ms, host_ms=host_ms,
+                         kernels_per_iteration=per_iter, bytes=nbytes,
+                         ops=ops_n))
         log(f"  B2 {label} [{E}, {M}]: max_abs_err {err}, solve iters "
-            f"{iters}, clean {int(sk[o + 2])}; one iteration: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{iters}, bf {bf}, clean {int(sk[o + 2])}; one iteration: "
+            f"kernel {ms:.4f} ms on the device ({host_ms:.4f} ms host "
+            f"enqueue, {per_iter} CUDA kernels), plain {plain_ms:.4f} ms")
         if err != 0:
             fail(f"B2 differs from its plain version at {label}")
         if not int(sk[o + 2]):
             fail(f"B2 solve at {label} did not converge")
+        if per_iter is not None and per_iter > 3:
+            fail(f"B2 launched {per_iter} CUDA kernels per iteration")
+    return rows
+
+
+def _mid_solve_states(big, vec, scale):
+    """States of the plain ladder in its first and second epsilon phases,
+    each after its refine and 8 iterations (global updates included),
+    with the phase's epsilon; and the first again at epsilon 2^27, where
+    the overflow guard (finite_max < 2^26 // eps = 0) refuses the update,
+    while the lengths stay non-negative (the state is eps-optimal for a
+    smaller epsilon), so the sweeps converge."""
+    from poseidon_tpu_torch.ops import transport as T
+
+    ops, state, eps_sched = _prepared(big, vec, scale)
+    kw = dict(ops=ops, iterate=T._pr_iteration,
+              global_update=T._global_update,
+              sweeps=torch.zeros(1, dtype=torch.int32, device=DEVICE),
+              total_iters=0, max_iter_total=8192, global_every=4,
+              bf_max=64, adaptive=1, unroll=4, stage="chip_smoke.states")
+    s0, _ = T._pr_phase(state, eps_sched[0], max_iter=8, **kw)
+    end0, _ = T._pr_phase(state, eps_sched[0], max_iter=8192, **kw)
+    s1, _ = T._pr_phase(end0, eps_sched[1], max_iter=8, **kw)
+    return ops, [("phase 0", eps_sched[0], s0), ("phase 1", eps_sched[1], s1),
+                 ("phase 0 at eps 2^27", 1 << 27, s0)]
+
+
+def check_global_update(cases) -> list:
+    """The global-update kernel against the plain ``_global_update`` on
+    mid-solve states: (pe, pm, pt) and the sweep count bit-equal.  Each
+    shape must cover three exits: converged and applied, converged with
+    the overflow guard refusing, and unconverged at bf_max (bf_max 0
+    stops after one group of sweeps that still moved).  Timed per update
+    on the device; the kernel must make no host read.  Each case records
+    its launch plan (blocks, length tiles in shared memory or not)."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops.transport_tiled import (
+        GlobalUpdate,
+        global_update_plan,
+    )
+
+    rows = []
+    for label, big, vec, scale in cases:
+        E, M = big.shape[1:]
+        plan = global_update_plan(E, M) if DEVICE.type == "cuda" else None
+        ops, states = _mid_solve_states(big, vec, scale)
+        gu_ops = {k: ops[k] for k in ("C", "U", "Uem", "supply", "cap",
+                                      "adm")}
+        exits = {}
+        for where, eps, s in states:
+            exc = T._excesses(*s[:3], supply=ops["supply"],
+                              total=ops["total"])
+            full_sweeps = None
+            for bf_max in (64, 0):
+                args = (*s, *exc)
+                acc_k = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+                acc_p = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+                step = GlobalUpdate()
+                reads0 = T.host_read_count()
+                out_k = step(*args, acc_k, eps=eps, bf_max=bf_max, **gu_ops)
+                reads = T.host_read_count() - reads0
+                out_p = T._global_update(*args, acc_p, eps=eps,
+                                         bf_max=bf_max, **gu_ops)
+                err = _max_err([t.cpu().numpy() for t in (*out_k, acc_k)],
+                               [t.cpu().numpy() for t in (*out_p, acc_p)])
+                sweeps = int(acc_p.cpu()[0])
+                applied = any(bool((a != b).any())
+                              for a, b in zip(out_p, s[3:6]))
+                if bf_max == 64:
+                    full_sweeps = sweeps
+                # Not applied: refused if the loop ended converged (before
+                # bf_max, or the full run's first group moved nothing),
+                # unconverged if the full run went on past this group.
+                if applied:
+                    kind = "applied"
+                elif sweeps <= bf_max or full_sweeps == sweeps:
+                    kind = "refused"
+                elif full_sweeps > sweeps:
+                    kind = "unconverged"
+                else:
+                    kind = "ambiguous"
+                acc_t = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+                ms, host_ms = _time_device(lambda: step(
+                    *args, acc_t, eps=eps, bf_max=bf_max, **gu_ops), 10)
+                plain_ms = _time_cuda(lambda: T._global_update(
+                    *args, acc_t, eps=eps, bf_max=bf_max, **gu_ops), 2)
+                # Bytes: each input read once (C, Uem and F; U, supply,
+                # Ffb, pe, exc_e; cap, Fmt, pm, exc_m; pt, exc_t and the
+                # sweep count), each output written once (pe, pm, pt, the
+                # sweep count).  The length planes are the kernel's own.
+                nbytes = 4 * (3 * E * M + 6 * E + 5 * M + 5)
+                ops_n = E * M * (OPS_PER_CELL_GU_LENGTHS
+                                 + OPS_PER_CELL_GU_SWEEP * sweeps)
+                row = dict(shape=[E, M], label=f"{label} {where} bf_max "
+                           f"{bf_max} ({kind})", exit=kind, err=err,
+                           sweeps=sweeps, ms=ms, plain_ms=plain_ms,
+                           host_ms=host_ms, host_reads=reads, bytes=nbytes,
+                           ops=ops_n, plan=plan)
+                rows.append(row)
+                exits.setdefault(kind, row)
+                bound = max(nbytes / HBM_BYTES_PER_S,
+                            ops_n / INT32_OPS_PER_S) * 1e3
+                log(f"  global update {row['label']} [{E}, {M}] eps {eps}: "
+                    f"max_abs_err {err}, sweeps {sweeps}, kernel {ms:.4f} "
+                    f"ms ({ms / sweeps:.5f} ms per sweep; host enqueue "
+                    f"{host_ms:.4f} ms, host reads {reads}; plan {plan}), "
+                    f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+                    f"({ms / bound:.1f}x)")
+                if err != 0:
+                    fail(f"global update differs from its plain version at "
+                         f"{row['label']}")
+                if reads != 0 and DEVICE.type == "cuda":
+                    fail(f"global update made {reads} host reads")
+        missing = {"applied", "refused", "unconverged"} - set(exits)
+        if missing:
+            fail(f"global update at {label}: exits {sorted(missing)} not "
+                 "covered")
+    # The record's lead case: an applied update at the wave's shape.
+    rows.sort(key=lambda r: r["exit"] != "applied")
     return rows
 
 
@@ -383,7 +587,11 @@ def kernel_cases():
     """B1 at the wave's coarse shape, the churn width at the gate's edge,
     a contended instance and the gate's two extremes (fewest ECs at the
     widest plane, most ECs at the narrowest); B2 at the wave's padded
-    width, cold and warm, and at the gate's edge."""
+    width, cold and warm, at the gate's edge, and ragged (the wave's size
+    unpadded, E and M not multiples of B2's tiles).  The global update
+    runs on the cold and edge cases' mid-solve states, and on those of a
+    wider band, [256, 16384], past the width at which every tile's block
+    can hold its length tiles in shared memory at once (the other plan)."""
     fused = []
     for label, (E, M), kw in (
         ("coarse", (128, 256), dict(supply_lo=500, supply_hi=1500,
@@ -417,16 +625,38 @@ def kernel_cases():
                                    prices=prices, eps_start=8 * scale + 1))
     inst = _instance(256, 10240, SEED, **wave)
     tiled.append(("edge",) + _pack(*inst))
-    return fused, tiled
+    # Ragged: the wave's size with E and M not multiples of B2's tiles,
+    # unpadded.
+    costs, supply, cap, unsched, arc = _instance(100, 10000, SEED, **wave)
+    big = np.stack([costs, arc, np.zeros_like(costs)])
+    from poseidon_tpu_torch.ops import transport as T
+
+    scale, eps_sched, _ = T._host_validate(costs, supply, cap, unsched,
+                                           None, None, 8000)
+    vec = np.concatenate([
+        supply, cap, unsched, np.zeros(100 + 10000 + 1, np.int32),
+        np.zeros(100, np.int32), eps_sched.astype(np.int32),
+        np.asarray([8192, 4, 64, 1], np.int32),
+    ]).astype(np.int32)
+    tiled.append(("ragged", big, vec, int(scale)))
+    gu = [c for c in tiled if c[0] in ("cold", "edge")]
+    gu.append(("wide",) + _pack(*_instance(256, 16384, SEED, **wave)))
+    return fused, tiled, gu
 
 
 def kernel_phase():
-    fused_cases, tiled_cases = kernel_cases()
+    fused_cases, tiled_cases, gu_cases = kernel_cases()
     log("kernels: B1 fused ladder vs plain ladder")
     fused = check_fused(fused_cases, one_sm_l2_rate())
     log("kernels: B2 per-iteration kernels vs plain iteration")
     tiled = check_tiled(tiled_cases)
-    return fused, tiled
+    log("kernels: global-update kernel vs plain global update")
+    gu = check_global_update(gu_cases)
+    plans = {r["plan"][1] for r in gu}
+    if DEVICE.type == "cuda" and plans != {0, 1}:
+        fail(f"the global-update cases took plans {sorted(plans)}: both "
+             "the shared-memory and the workspace plan must run")
+    return fused, tiled, gu
 
 
 # --------------------------------------------------------------- phase 4
@@ -509,11 +739,39 @@ def _contended():
     return nodes, tasks
 
 
+def route_split(reads0, iters0, sweeps0) -> dict:
+    """The per-iteration route's (B2's) device solve split by stage, from
+    the stage timers since their last reset: host (enqueue) seconds,
+    device seconds (CUDA events around each stage), calls and host reads
+    per stage, and each route's iterations and Bellman-Ford sweeps."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.utils import stagetimer
+
+    host = stagetimer.snapshot()
+    dev = stagetimer.device_snapshot()
+    out = {"stages": {}, "route_iters": {}, "route_sweeps": {}}
+    for name in ("solve.device.tiled", "solve.device.tiled.iterate",
+                 "solve.device.tiled.global_update",
+                 "solve.device.tiled.other", "solve.device.fused"):
+        out["stages"][name] = {
+            "host_s": host.get(name, (0.0, 0))[0],
+            "device_s": dev.get(name, (0.0, 0))[0],
+            "calls": host.get(name, (0.0, 0))[1],
+            "host_reads": T._Telemetry.stage_reads[name] - reads0[name],
+        }
+    for impl in ("fused", "tiled", "lax"):
+        out["route_iters"][impl] = T._Telemetry.route_iters[impl] \
+            - iters0[impl]
+        out["route_sweeps"][impl] = T._Telemetry.route_sweeps[impl] \
+            - sweeps0[impl]
+    return out
+
+
 def drive(label, nodes, tasks, churn_rounds):
     """Start the port's server, load the cluster over gRPC, run a fresh
     wave and ``churn_rounds`` churn rounds.  Returns per-round records
     (serialized deltas, metrics, wall seconds, launches, host reads,
-    routes)."""
+    routes, and B2's route split by stage)."""
     import grpc
 
     from poseidon_tpu_torch.ops import _kernels
@@ -558,9 +816,14 @@ def drive(label, nodes, tasks, churn_rounds):
             stagetimer.reset()
             reads0 = T.host_read_count()
             routes0 = dict(T._Telemetry.routes)
+            split0 = (Counter(T._Telemetry.stage_reads),
+                      Counter(T._Telemetry.route_iters),
+                      Counter(T._Telemetry.route_sweeps))
+            k0 = _b2_kernel_count()
             t0 = time.perf_counter()
             out = stubs.Schedule(fpb.ScheduleRequest())
             wall = time.perf_counter() - t0
+            k1 = _b2_kernel_count()
             m = srv.servicer.planner.last_metrics
             rec = dict(
                 kind="wave" if r == 0 else f"churn{r}",
@@ -573,6 +836,8 @@ def drive(label, nodes, tasks, churn_rounds):
                 host_reads=T.host_read_count() - reads0,
                 routes=sorted(k for k, n in T._Telemetry.routes.items()
                               if n > routes0.get(k, 0)),
+                split=route_split(*split0),
+                b2_kernels=None if k0 is None else k1 - k0,
             )
             rounds.append(rec)
             log(f"  [{label}] {rec['kind']}: {wall:.3f} s wall, placed "
@@ -584,6 +849,8 @@ def drive(label, nodes, tasks, churn_rounds):
             log("    stages (s): " + ", ".join(
                 f"{k} {v[0]:.3f}" for k, v in sorted(
                     stagetimer.snapshot().items(), key=lambda kv: -kv[1][0])))
+            if rec["split"]["stages"]["solve.device.tiled"]["calls"]:
+                log("    B2 route split: " + json.dumps(rec["split"]))
             if m.gap_bound != 0.0 or not m.converged:
                 fail(f"[{label}] {rec['kind']} did not certify "
                      f"(gap_bound {m.gap_bound})")
@@ -601,12 +868,16 @@ def _set_plain(plain: bool) -> None:
 def main_path():
     """The main path with the kernels, then again with the plain versions
     forced; the deltas must match byte for byte."""
+    from poseidon_tpu_torch.utils import stagetimer
+
     scenarios = [("wave", _population(), CHURN_ROUNDS)]
     results = {}
     for name, (nodes, tasks), churn in scenarios:
         _set_plain(False)
         log(f"main path: {name}, kernels")
+        stagetimer.set_device_timing(True)
         kern = drive(name, nodes, tasks, churn)
+        stagetimer.set_device_timing(False)
         launched = kern[0]["launches"]
         if name == "wave" and launched["tiled_iteration"] == 0:
             # The wave never reached the per-iteration kernel: show where
@@ -626,16 +897,36 @@ def main_path():
             f"{len(kern)} rounds")
         results[name] = kern
     total = {k: sum(r["launches"][k] for rs in results.values()
-                    for r in rs) for k in ("fused_ladder", "tiled_iteration")}
+                    for r in rs)
+             for k in ("fused_ladder", "tiled_iteration", "global_update")}
     wave_l = results["wave"][0]["launches"]
     if wave_l["fused_ladder"] == 0:
         fail("the fresh wave launched no fused ladder kernel")
     if total["tiled_iteration"] == 0:
         fail("the main path launched no per-iteration kernel")
+    # B2's route on the wave (or on the contended wave that stood in for
+    # it): its global updates ran as the kernel, with no host read, and
+    # each iteration launched at most three CUDA kernels.
+    b2 = next(rs[0] for rs in results.values()
+              if rs[0]["launches"]["tiled_iteration"])
+    if b2["launches"]["global_update"] == 0:
+        fail("B2's route on the wave launched no global-update kernel")
+    gu_reads = b2["split"]["stages"]["solve.device.tiled.global_update"][
+        "host_reads"]
+    per_iter = (None if b2["b2_kernels"] is None else
+                b2["b2_kernels"] / b2["launches"]["tiled_iteration"])
+    log(f"  B2's route on the wave: {b2['launches']['tiled_iteration']} "
+        f"iterations, {per_iter} CUDA kernels per iteration, "
+        f"{b2['launches']['global_update']} global updates with "
+        f"{gu_reads} host reads")
+    if gu_reads != 0:
+        fail(f"the wave's global updates made {gu_reads} host reads")
+    if per_iter is not None and per_iter > 3:
+        fail(f"B2 launched {per_iter} CUDA kernels per iteration")
     return results, total
 
 
-def kernels_record(fused, tiled, launches):
+def kernels_record(fused, tiled, gu, launches):
     def row(name, source, replaces, unit, cases, n):
         lead = cases[0]
         bound_bytes = lead["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -650,7 +941,9 @@ def kernels_record(fused, tiled, launches):
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None,
             "cases": [{k: c[k] for k in ("label", "shape", "err", "ms",
-                                         "plain_ms", "one_sm_floor_ms")
+                                         "plain_ms", "one_sm_floor_ms",
+                                         "host_ms", "kernels_per_iteration",
+                                         "sweeps", "plan")
                        if k in c}
                       | {"bound_ms": max(c["bytes"] / HBM_BYTES_PER_S,
                                          c["ops"] / INT32_OPS_PER_S) * 1e3}
@@ -665,17 +958,57 @@ def kernels_record(fused, tiled, launches):
         row("tiled_iteration",
             "poseidon_tpu_torch/ops/csrc/tiled_iteration.cu",
             "poseidon_tpu/ops/transport_tiled.py:73",
-            "one push/relabel iteration: a sequence of five CUDA kernels",
+            "one push/relabel iteration: a sequence of three CUDA kernels",
             tiled, launches["tiled_iteration"]),
+        row("global_update",
+            "poseidon_tpu_torch/ops/csrc/global_update.cu",
+            "poseidon_tpu/ops/transport.py:548",
+            "one cooperative launch: a whole global update", gu,
+            launches["global_update"]),
     ]}
 
 
 # --------------------------------------------------------------- main
 
-def main(argv) -> int:
+def compare(runs: int) -> int:
+    """``--compare N``: one B2 iteration's device time at each B2 kernel
+    case (``_time_b2``), then N fresh-wave drives with the kernels (no
+    churn, no plain run), each printed as a JSON line with B2's route
+    split; run in two trees in turn to compare them in one call."""
+    from poseidon_tpu_torch.ops.transport_tiled import TiledIteration
+    from poseidon_tpu_torch.utils import stagetimer
+
     info = device_info()
     build_kernels()
-    fused, tiled = kernel_phase()
+    times = {}
+    for label, big, vec, scale in kernel_cases()[1]:
+        ms, host_ms = _time_b2(TiledIteration(), *_b2_start(big, vec, scale))
+        times[label] = {"shape": list(big.shape[1:]), "ms": ms,
+                        "host_ms": host_ms}
+    print(json.dumps({"b2_times": times, "smi": info["smi"]}), flush=True)
+    # Warm-up: a small solve through each kernel route loads every kernel
+    # and torch op the wave's routes use, so the first drive is not
+    # charged for first use.
+    inst = _instance(16, 1024, SEED, supply_lo=40, supply_hi=120, cap_lo=1,
+                     cap_hi=6)
+    for impl in ("fused", "tiled"):
+        _run_route(*_pack(*inst), impl)
+    stagetimer.set_device_timing(True)
+    nodes, tasks = _population()
+    for _ in range(runs):
+        rec = drive("wave", nodes, tasks, 0)[0]
+        print(json.dumps({"route_split": rec["split"],
+                          "wall_s": rec["wall_s"], "smi": info["smi"]}),
+              flush=True)
+    return 0
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--compare"]:
+        return compare(int(argv[1]))
+    info = device_info()
+    build_kernels()
+    fused, tiled, gu = kernel_phase()
     results, launches = main_path()
     # Output check: the wave placed pods and every round certified (the
     # drive fails otherwise); the churn rounds re-placed the churned pods.
@@ -683,7 +1016,8 @@ def main(argv) -> int:
     if wave[0]["placed"] <= 0:
         fail("the fresh wave placed nothing")
     print(info["smi"], flush=True)
-    print(json.dumps(kernels_record(fused, tiled, launches)), flush=True)
+    print(json.dumps(kernels_record(fused, tiled, gu, launches)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],
     }}), flush=True)

@@ -23,7 +23,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_ladder.cu", "tiled_iteration.cu")
+_SOURCES = ("fused_ladder.cu", "tiled_iteration.cu", "global_update.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 
 # Launch counts, one per kernel: each wrapper adds one where it launches
 # its kernel and nowhere else.
-LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0}
+LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0, "global_update": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -108,21 +108,29 @@ def lib() -> SimpleNamespace:
     with _LOCK:
         if _LIB is None:
             libs = build()
-            P, I = ctypes.c_void_p, ctypes.c_int
-            ladder = ctypes.CDLL(str(libs["fused_ladder.cu"]))
-            fused = ladder.pt_fused_ladder
-            fused.argtypes = [P] * 14 + [I, I, P]
-            fused.restype = I
-            smem = ladder.pt_fused_ladder_smem_bytes
-            smem.argtypes = [I]
-            smem.restype = ctypes.c_size_t
-            tiled = ctypes.CDLL(
-                str(libs["tiled_iteration.cu"])).pt_tiled_iteration
-            tiled.argtypes = [P] * 27 + [I] * 5 + [P]
-            tiled.restype = I
-            _LIB = SimpleNamespace(pt_fused_ladder=fused,
-                                   pt_fused_ladder_smem_bytes=smem,
-                                   pt_tiled_iteration=tiled)
+            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fns = {}
+
+            def bind(src, name, argtypes, restype):
+                fn = getattr(ctypes.CDLL(str(libs[src])), name)
+                fn.argtypes, fn.restype = argtypes, restype
+                fns[name] = fn
+
+            bind("fused_ladder.cu", "pt_fused_ladder", [P] * 14 + [I, I, P], I)
+            bind("fused_ladder.cu", "pt_fused_ladder_smem_bytes", [I],
+                 ctypes.c_size_t)
+            bind("tiled_iteration.cu", "pt_tiled_iteration",
+                 [P] * 26 + [I] * 5 + [P], I)
+            bind("tiled_iteration.cu", "pt_tiled_iteration_ws_ints", [I, I],
+                 LL)
+            bind("tiled_iteration.cu", "pt_tiled_iteration_kernels", [],
+                 ctypes.c_ulonglong)
+            bind("global_update.cu", "pt_global_update_launch",
+                 [P] * 19 + [I] * 6 + [P], I)
+            bind("global_update.cu", "pt_global_update_ws_ints", [I, I, I],
+                 LL)
+            bind("global_update.cu", "pt_global_update_plan", [I, I, P], I)
+            _LIB = SimpleNamespace(**fns)
         return _LIB
 
 

@@ -17,9 +17,10 @@ validation, scale and epsilon ladder, greedy and coarse warm starts, the
 exact reduced-cost certificate (``_host_finalize``), the selective
 column-reduced wrapper.  Device side (torch): the plain ladder
 (``_solve_device`` = ``_pr_phase`` + ``_pr_iteration`` +
-``_global_update``), and the routes to the two hand-written CUDA kernels:
-the fused whole-ladder kernel (``transport_fused``, shapes inside the fused
-gate) and the per-iteration kernel (``transport_tiled``, the wider bands).
+``_global_update``), and the routes to the hand-written CUDA kernels: the
+fused whole-ladder kernel (``transport_fused``, shapes inside the fused
+gate) and the per-iteration kernel with its global-update kernel
+(``transport_tiled``, the wider bands).
 Every route is bit-identical to the plain ladder, which is bit-identical
 to the reference's lax path.
 
@@ -32,6 +33,7 @@ reports a gap bound of ``n / SCALE`` raw cost units otherwise.
 from __future__ import annotations
 
 from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
 
@@ -140,12 +142,19 @@ class _Telemetry:
     path makes (the eager counterpart of the reference's loop-condition
     syncs), and ``routes`` counts device solves by ``(impl, E_pad,
     M_pad)`` so a driver can show which implementation served each shape.
+    ``route_iters`` and ``route_sweeps`` sum the iterations and
+    Bellman-Ford sweeps of the device solves by ``impl``, and
+    ``stage_reads`` counts host reads by phase-loop stage
+    (``solve.device.<impl>.iterate``, ``.global_update``, ``.other``).
     """
 
     device_calls = 0
     host_cert_returns = 0
     host_reads = 0
     routes: Counter = Counter()
+    route_iters: Counter = Counter()
+    route_sweeps: Counter = Counter()
+    stage_reads: Counter = Counter()
 
 
 def device_call_count() -> int:
@@ -164,6 +173,16 @@ def _host_read(t: torch.Tensor) -> np.ndarray:
 
 
 # ------------------------------------------------------------ device policy
+
+@contextmanager
+def _loop_stage(name: str, device):
+    """A phase-loop stage: host (and, when enabled, device) seconds in the
+    stage timer, and the host reads it made in ``stage_reads``."""
+    r0 = _Telemetry.host_reads
+    with _stage(name, device):
+        yield
+    _Telemetry.stage_reads[name] += _Telemetry.host_reads - r0
+
 
 def resolve_device(device=None) -> torch.device:
     """The solve's device: CUDA unless the caller asks for the CPU.  No
@@ -305,13 +324,16 @@ def _phase_status(exc_e, exc_m, exc_t, iters):
     ])
 
 
-def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, *, C, U,
-                   Uem, supply, cap, adm, eps: int, bf_max: int):
+def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
+                   *, C, U, Uem, supply, cap, adm, eps: int, bf_max: int):
     """Goldberg-style global price update (the reference's
     ``_global_update``): Bellman-Ford distances to a deficit node over the
     residual graph under lengths ``floor(rc / eps) + 1``, then potentials
     drop by ``eps * d``.  Jacobi sweeps, four per host read of the
-    ``changed`` flag.  Returns ``(pe, pm, pt, sweeps)``."""
+    ``changed`` flag.  Returns ``(pe, pm, pt)`` and adds the sweeps it ran
+    to ``sweeps_acc`` (an int32 [1] tensor, the solve's count), as the
+    per-iteration route's kernel (``transport_tiled.GlobalUpdate``) does on
+    the device."""
 
     def lengths(rc):
         return torch.div(rc, eps, rounding_mode="floor") + 1
@@ -364,10 +386,11 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, *, C, U,
         changed = bool(_host_read(flag))
         sweeps += BF_UNROLL
 
+    sweeps_acc += sweeps
     if changed:
         # Unconverged: skip the update (it only accelerates; the host
         # certificate re-derives optimality regardless).
-        return pe, pm, pt, sweeps
+        return pe, pm, pt
     finite_max = torch.maximum(
         torch.maximum(
             torch.where(d_e < _DINF, d_e, 0).amax(),
@@ -384,7 +407,7 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, *, C, U,
     pe_new = torch.where(ok, torch.clamp(pe - eps * d_e, min=_NEG // 2), pe)
     pm_new = torch.where(ok, torch.clamp(pm - eps * d_m, min=_NEG // 2), pm)
     pt_new = torch.where(ok, torch.clamp(pt - eps * d_t, min=_NEG // 2), pt)
-    return pe_new, pm_new, pt_new, sweeps
+    return pe_new, pm_new, pt_new
 
 
 def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
@@ -468,23 +491,29 @@ def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
     return F_new, Ffb_new, Fmt_new, pe, pm, pt, exc_e, exc_m, exc_t, st
 
 
-def _pr_phase(state, eps: int, *, ops: dict, iterate, total_iters: int,
-              max_iter: int, max_iter_total: int, global_every: int,
-              bf_max: int, adaptive: int, unroll: int):
+def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
+              sweeps, total_iters: int, max_iter: int, max_iter_total: int,
+              global_every: int, bf_max: int, adaptive: int, unroll: int,
+              stage: str):
     """One epsilon phase: refine the carried flows to the new eps, then
     synchronous push/relabel until every excess is zero.
 
     ``iterate`` is one push/excess/relabel step (``_pr_iteration`` or the
-    per-iteration kernel's wrapper); the global update runs as plain torch
-    ops on the post-push state, exactly where the reference runs it in
-    place of the local relabel.  The host reads the phase status once per
-    group of ``unroll`` iterations; iterations past convergence are exact
-    no-ops that the device-side iteration count does not count, and a
-    global update due mid-group reads the status first, so results and
-    counts are those of the reference's loop.  Returns the new state, the
-    phase's iterations and its Bellman-Ford sweeps.
+    per-iteration kernel's wrapper) and ``global_update`` the global price
+    update (``_global_update`` or its kernel's wrapper), which runs on the
+    post-push state exactly where the reference runs it in place of the
+    local relabel and adds its Bellman-Ford sweeps to the int32 [1] device
+    tensor ``sweeps``; nothing here reads that count.  The host reads the
+    phase status once per group of ``unroll`` iterations; iterations past
+    convergence are exact no-ops that the device-side iteration count does
+    not count, and a global update due mid-group reads the status first,
+    so results and counts are those of the reference's loop.  The loop's stages are timed
+    as ``<stage>.iterate``, ``.global_update`` and ``.other`` (refine,
+    excesses, status reads).  Returns the new state and the phase's
+    iterations.
     """
     F, Ffb, Fmt, pe, pm, pt = state
+    dev = F.device
     C, U, Uem, supply, cap, adm, total = (
         ops["C"], ops["U"], ops["Uem"], ops["supply"], ops["cap"],
         ops["adm"], ops["total"],
@@ -493,27 +522,31 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, total_iters: int,
     # disturbance to the carried flows.  It must not fire once the
     # cross-phase budget is (nearly) spent: nothing would be left to
     # repair the excesses it creates.
-    if total_iters + 64 < max_iter_total:
-        def refine(rc, flow, hi):
-            return torch.where(rc < -eps, hi, torch.where(rc > eps, 0, flow))
+    with _loop_stage(f"{stage}.other", dev):
+        if total_iters + 64 < max_iter_total:
+            def refine(rc, flow, hi):
+                return torch.where(rc < -eps, hi,
+                                   torch.where(rc > eps, 0, flow))
 
-        rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
-        F = refine(rc_em, F, Uem)
-        Ffb = refine(U + pe - pt, Ffb, supply)
-        Fmt = refine(pm - pt, Fmt, cap)
+            rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
+            F = refine(rc_em, F, Uem)
+            Ffb = refine(U + pe - pt, Ffb, supply)
+            Fmt = refine(pm - pt, Fmt, cap)
 
-    exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply, total=total)
-    st = _phase_status(exc_e, exc_m, exc_t,
-                       torch.zeros(1, dtype=I32, device=F.device))
+        exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply,
+                                        total=total)
+        st = _phase_status(exc_e, exc_m, exc_t,
+                           torch.zeros(1, dtype=I32, device=dev))
 
     def budget_ok(i):
         return i < max_iter and total_iters + i < max_iter_total
 
-    it = bf = 0
+    it = 0
     next_gu, gap, last_exc = 0, global_every, 0
     done = False
     while not done and budget_ok(it):
-        active, tot, it = (int(v) for v in _host_read(st))
+        with _loop_stage(f"{stage}.other", dev):
+            active, tot, it = (int(v) for v in _host_read(st))
         if not active or not budget_ok(it):
             break
         for k in range(unroll):
@@ -523,30 +556,34 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, total_iters: int,
             if fire and k > 0:
                 # The update's decision and its cadence state need the
                 # entering state's activity and excess total.
-                active, tot, it = (int(v) for v in _host_read(st))
+                with _loop_stage(f"{stage}.other", dev):
+                    active, tot, it = (int(v) for v in _host_read(st))
                 if not active:
                     done = True
                     break
-            (F, Ffb, Fmt, pe2, pm2, pt2, exc_e, exc_m, exc_t, st) = iterate(
-                F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, eps=eps,
-                do_relabel=not fire, C=C, U=U, Uem=Uem, supply=supply,
-                cap=cap, adm=adm, total=total,
-            )
-            if fire:
-                pe, pm, pt, sweeps = _global_update(
-                    F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, C=C, U=U,
-                    Uem=Uem, supply=supply, cap=cap, adm=adm, eps=eps,
-                    bf_max=bf_max,
+            with _loop_stage(f"{stage}.iterate", dev):
+                (F, Ffb, Fmt, pe2, pm2, pt2, exc_e, exc_m, exc_t,
+                 st) = iterate(
+                    F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st,
+                    eps=eps, do_relabel=not fire, C=C, U=U, Uem=Uem,
+                    supply=supply, cap=cap, adm=adm, total=total,
                 )
-                bf += sweeps
+            if fire:
+                with _loop_stage(f"{stage}.global_update", dev):
+                    pe, pm, pt = global_update(
+                        F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
+                        sweeps, C=C, U=U, Uem=Uem, supply=supply, cap=cap,
+                        adm=adm, eps=eps, bf_max=bf_max,
+                    )
                 next_gu, gap, last_exc = _gu_advance(
                     tot, it, gap, last_exc, global_every
                 )
             else:
                 pe, pm, pt = pe2, pm2, pt2
             it += 1
-    it = int(_host_read(st[2]))
-    return (F, Ffb, Fmt, pe, pm, pt), it, bf
+    with _loop_stage(f"{stage}.other", dev):
+        it = int(_host_read(st[2]))
+    return (F, Ffb, Fmt, pe, pm, pt), it
 
 
 def _prepare_operands(costs, supply, capacity, unsched_cost, arc_cap,
@@ -581,11 +618,13 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
                   init_prices, init_flows, init_fb, eps_sched,
                   max_iter_total: int, global_every: int, bf_max: int,
                   adaptive_bf: int = 0, *, max_iter: int, scale: int,
-                  total: int, iterate=None):
+                  total: int, iterate=None, global_update=None,
+                  stage: str = "solve.device.lax"):
     """The plain torch ladder (the reference's ``_solve_device``): every
     phase of ``eps_sched`` through ``_pr_phase``.  Tensors are int32 on
     one device; budgets and knobs are host ints; ``total`` is the host's
-    certified total supply.  ``iterate`` defaults to ``_pr_iteration``.
+    certified total supply.  ``iterate`` and ``global_update`` default to
+    ``_pr_iteration`` and ``_global_update``.
 
     Returns ``(F, Ffb, prices, stats)``: ``stats`` is int32
     ``[iters, bf_sweeps, clean, phase_iters...]`` on the device.
@@ -597,23 +636,24 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
     )
     ops["total"] = total
     unroll = iter_unroll(costs.device)
-    iters = bf = 0
+    iters = 0
+    sweeps = torch.zeros(1, dtype=I32, device=costs.device)
     phase_iters = []
     for eps in eps_sched:
-        state, it, sweeps = _pr_phase(
+        state, it = _pr_phase(
             state, int(eps), ops=ops, iterate=iterate or _pr_iteration,
+            global_update=global_update or _global_update, sweeps=sweeps,
             total_iters=iters, max_iter=max_iter,
             max_iter_total=max_iter_total, global_every=global_every,
-            bf_max=bf_max, adaptive=adaptive_bf, unroll=unroll,
+            bf_max=bf_max, adaptive=adaptive_bf, unroll=unroll, stage=stage,
         )
         iters += it
-        bf += sweeps
         phase_iters.append(it)
     F, Ffb, Fmt, pe, pm, pt = state
     exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply, total=total)
     clean = ~((exc_e != 0).any() | (exc_m != 0).any() | (exc_t != 0).any())
     stats = torch.cat([
-        torch.tensor([iters, bf], dtype=I32, device=F.device),
+        torch.tensor([iters], dtype=I32, device=F.device), sweeps,
         clean.to(I32).reshape(1),
         torch.tensor(phase_iters, dtype=I32, device=F.device),
     ])
@@ -1939,7 +1979,7 @@ def solve_transport(
     else:
         impl = "lax"
     _Telemetry.routes[(impl, E_pad, M_pad)] += 1
-    with _stage("solve.device"), _stage(f"solve.device.{impl}"):
+    with _stage("solve.device"), _stage(f"solve.device.{impl}", dev):
         F_dev, small = _solve_device_packed(
             big, vec, max_iter=max_iter_per_phase, scale=int(scale),
             impl=impl, device=dev,
@@ -1950,6 +1990,8 @@ def solve_transport(
     o += E_pad + M_pad + 1
     iters, bf, clean, unchanged = (int(small[o]), int(small[o + 1]),
                                    bool(small[o + 2]), bool(small[o + 3]))
+    _Telemetry.route_iters[impl] += iters
+    _Telemetry.route_sweeps[impl] += bf
     phase_iters = small[o + 4:o + 4 + NUM_PHASES]
     if unchanged:
         # The solve returned the warm start bit-for-bit; reuse the host's

@@ -92,6 +92,7 @@ def solve_device_fused(costs, supply, capacity, unsched_cost, arc_cap,
             costs, supply, capacity, unsched_cost, arc_cap, init_prices,
             init_flows, init_fb, eps_sched, max_iter_total, global_every,
             bf_max, adaptive_bf, max_iter=max_iter, scale=scale, total=total,
+            stage="solve.device.fused",
         )
     ops, state = _prepare_operands(
         costs, supply, capacity, unsched_cost, arc_cap, init_prices,

@@ -1,14 +1,18 @@
 """The per-iteration route (B2): one push/excess/relabel iteration per
-launch sequence (``csrc/tiled_iteration.cu``), for padded shapes past the
-fused gate with few enough EC rows — the 10k-machine wave band.
+launch sequence (``csrc/tiled_iteration.cu``), and the route's global
+price update as one cooperative launch (``csrc/global_update.cu``), for
+padded shapes past the fused gate with few enough EC rows — the
+10k-machine wave band.
 
 Replaces the JAX package's Pallas kernel
 ``poseidon_tpu/ops/transport_tiled.py::_iteration_kernel`` (launched by
-``_tiled_iteration`` from ``_pr_phase_tiled``).  The refine step and the
-Bellman-Ford global update stay torch ops here, as they stay XLA in the
-reference.  ``tiled_iteration`` has the contract of the plain iteration
-(``transport._pr_iteration``): on CUDA tensors it launches the kernels, on
-CPU tensors it runs the plain iteration.
+``_tiled_iteration`` from ``_pr_phase_tiled``).  The reference leaves the
+global update to XLA inside its ``lax.while_loop``; here it is a kernel
+too, so the update makes no host read, as on the reference's device.  The
+refine step stays torch ops.  ``TiledIteration`` and ``GlobalUpdate`` have
+the contracts of the plain ``transport._pr_iteration`` and
+``transport._global_update``: on CUDA tensors they launch the kernels, on
+CPU tensors they run the plain versions.
 
 The gate ``fits_tile`` is the reference's VMEM tile budget, inherited
 unchanged (same padded shapes as the reference's accelerator policy); it
@@ -17,66 +21,200 @@ is not yet derived for the H100.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from poseidon_tpu_torch.ops import _kernels
-from poseidon_tpu_torch.ops.transport import I32, _pr_iteration, _solve_device
+from poseidon_tpu_torch.ops.transport import (
+    I32,
+    _global_update,
+    _pr_iteration,
+    _solve_device,
+)
 
 # The reference's tile working-set gate: E * TILE_W <= 2^17.
 TILE_W = 512
 TILE_ELEM_BUDGET = 1 << 17
+
+# The global update keeps one [E] distance vector in each block's
+# dynamic shared memory (and its tile of the length planes only where
+# that fits), under the 48 KB a block may use by default.
+GU_MAX_ROWS = 8192
 
 
 def fits_tile(e_pad: int) -> bool:
     return e_pad * TILE_W <= TILE_ELEM_BUDGET
 
 
-def tiled_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
-                    eps, do_relabel, C, U, Uem, supply, cap, adm, total):
-    """One iteration: B2 on CUDA tensors, ``_pr_iteration`` on CPU."""
-    if F.device.type == "cpu":
-        return _pr_iteration(
-            F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, eps=eps,
-            do_relabel=do_relabel, C=C, U=U, Uem=Uem, supply=supply,
-            cap=cap, adm=adm, total=total,
+class _Operands:
+    """The solve's fixed operands (C, Uem, U, supply, cap), checked once
+    and held by identity: a call with other tensors checks them again."""
+
+    def __init__(self):
+        self.key = None
+
+    def bind(self, C, Uem, U, supply, cap) -> bool:
+        """Check the operands unless they are the ones last checked;
+        returns whether they changed."""
+        key = (C, Uem, U, supply, cap)
+        if self.key is not None and all(
+                a is b for a, b in zip(key, self.key)):
+            return False
+        E, M = C.shape
+        dev = C.device
+        ck = _kernels.check
+        self.ptrs = [
+            ck(C, "C", (E, M), dev), ck(Uem, "Uem", (E, M), dev),
+            ck(U, "U", (E,), dev), ck(supply, "supply", (E,), dev),
+            ck(cap, "cap", (M,), dev),
+        ]
+        self.key, self.E, self.M, self.dev = key, E, M, dev
+        return True
+
+
+class TiledIteration:
+    """B2 for one solve.  The fixed operands are checked and the
+    workspace and two output sets are allocated at the first call (again
+    only if the operands change); each call writes the set that holds none
+    of its inputs, and checks only the inputs it did not produce itself."""
+
+    _STATE = ("F", "Ffb", "Fmt", "pe", "pm", "pt", "exc_e", "exc_m",
+              "exc_t", "st")
+
+    def __init__(self):
+        self._ops = _Operands()
+        self._sets = None
+
+    def _alloc(self):
+        E, M, dev = self._ops.E, self._ops.M, self._ops.dev
+        return [torch.empty(s, dtype=I32, device=dev) for s in
+                ((E, M), E, M, E, M, 1, E, M, 1, 3)]
+
+    def __call__(self, F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
+                 eps, do_relabel, C, U, Uem, supply, cap, adm, total):
+        if F.device.type == "cpu":
+            return _pr_iteration(
+                F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, eps=eps,
+                do_relabel=do_relabel, C=C, U=U, Uem=Uem, supply=supply,
+                cap=cap, adm=adm, total=total,
+            )
+        ops = self._ops
+        if ops.bind(C, Uem, U, supply, cap):
+            self._sets = None
+        E, M, dev = ops.E, ops.M, ops.dev
+        ins = (F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st)
+        in_ids = {id(t) for t in ins}
+        owned = set() if self._sets is None else self._ids[0] | self._ids[1]
+        shapes = ((E, M), (E,), (M,), (E,), (M,), (1,), (E,), (M,), (1,),
+                  (3,))
+        ptrs = [t.data_ptr() if id(t) in owned
+                else _kernels.check(t, name, shape, dev)
+                for t, name, shape in zip(ins, self._STATE, shapes)]
+        so = _kernels.lib()
+        if self._sets is None:
+            # Zeroed: the last int is the final pass's ticket.
+            self._ws = torch.zeros(so.pt_tiled_iteration_ws_ints(E, M),
+                                   dtype=I32, device=dev)
+            self._sets = [self._alloc(), self._alloc()]
+            self._ids = [{id(t) for t in s} for s in self._sets]
+            self._next = 0
+        for k in (self._next, 1 - self._next):
+            if not in_ids & self._ids[k]:
+                break
+        else:  # both sets hold inputs: write a fresh one
+            k = self._next
+            self._sets[k] = self._alloc()
+            self._ids[k] = {id(t) for t in self._sets[k]}
+        self._next = 1 - k
+        outs = self._sets[k]
+        _kernels.LAUNCHES["tiled_iteration"] += 1
+        rc = so.pt_tiled_iteration(
+            *ops.ptrs, *ptrs, *[o.data_ptr() for o in outs],
+            self._ws.data_ptr(), E, M, int(eps), 1 if do_relabel else 0,
+            int(total), torch.cuda.current_stream(dev).cuda_stream,
         )
-    E, M = F.shape
-    dev = F.device
-    ck = _kernels.check
-    outs = [torch.empty_like(t) for t in
-            (F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st)]
-    tpm = torch.empty(M, dtype=I32, device=dev)
-    tpe = torch.empty(E, dtype=I32, device=dev)
-    ins = [
-        ck(C, "C", (E, M), dev), ck(Uem, "Uem", (E, M), dev),
-        ck(U, "U", (E,), dev), ck(supply, "supply", (E,), dev),
-        ck(cap, "cap", (M,), dev), ck(F, "F", (E, M), dev),
-        ck(Ffb, "Ffb", (E,), dev), ck(Fmt, "Fmt", (M,), dev),
-        ck(pe, "pe", (E,), dev), ck(pm, "pm", (M,), dev),
-        ck(pt, "pt", (1,), dev), ck(exc_e, "exc_e", (E,), dev),
-        ck(exc_m, "exc_m", (M,), dev), ck(exc_t, "exc_t", (1,), dev),
-        ck(st, "st", (3,), dev),
-    ]
-    so = _kernels.lib()
-    _kernels.LAUNCHES["tiled_iteration"] += 1
-    rc = so.pt_tiled_iteration(
-        *ins, *[o.data_ptr() for o in outs], tpm.data_ptr(), tpe.data_ptr(),
-        E, M, int(eps), 1 if do_relabel else 0, int(total),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _kernels.launch_check(rc, "tiled_iteration")
-    return tuple(outs)
+        _kernels.launch_check(rc, "tiled_iteration")
+        return tuple(outs)
+
+
+def global_update_plan(E: int, M: int) -> tuple[int, int]:
+    """The global update's launch plan at [E, M] on the current card:
+    (blocks of the cooperative grid, 1 if each block keeps its one tile
+    of the length planes in shared memory, else 0: the planes live in
+    the workspace and a block walks one or more tiles)."""
+    plan = (ctypes.c_int * 2)()
+    _kernels.launch_check(
+        _kernels.lib().pt_global_update_plan(E, M, plan), "global_update plan")
+    return plan[0], plan[1]
+
+
+class GlobalUpdate:
+    """The route's global update for one solve: the fixed operands are
+    checked and the workspace (two length planes, the distance buffers,
+    the convergence flags and the grid barrier) is allocated at the first
+    call.  Each call is one cooperative launch that runs the whole
+    Bellman-Ford loop and adds its sweeps to ``sweeps_acc`` on the
+    device; it writes fresh (pe, pm, pt)."""
+
+    def __init__(self):
+        self._ops = _Operands()
+        self._ws = self._bf_max = None
+
+    def __call__(self, F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
+                 sweeps_acc, *, C, U, Uem, supply, cap, adm, eps, bf_max):
+        if F.device.type == "cpu":
+            return _global_update(
+                F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
+                C=C, U=U, Uem=Uem, supply=supply, cap=cap, adm=adm, eps=eps,
+                bf_max=bf_max,
+            )
+        ops = self._ops
+        if ops.bind(C, Uem, U, supply, cap) or self._bf_max != bf_max:
+            self._ws = None
+        E, M, dev = ops.E, ops.M, ops.dev
+        if E > GU_MAX_ROWS:
+            raise ValueError(f"global_update: {E} rows, at most "
+                             f"{GU_MAX_ROWS}")
+        ck = _kernels.check
+        ptrs = [
+            ck(F, "F", (E, M), dev), ck(Ffb, "Ffb", (E,), dev),
+            ck(Fmt, "Fmt", (M,), dev), ck(pe, "pe", (E,), dev),
+            ck(pm, "pm", (M,), dev), ck(pt, "pt", (1,), dev),
+            ck(exc_e, "exc_e", (E,), dev), ck(exc_m, "exc_m", (M,), dev),
+            ck(exc_t, "exc_t", (1,), dev),
+        ]
+        acc = ck(sweeps_acc, "sweeps_acc", (1,), dev)
+        so = _kernels.lib()
+        if self._ws is None:
+            # Zeroed: the grid barrier's two words must start at 0.
+            self._ws = torch.zeros(
+                so.pt_global_update_ws_ints(ops.E, ops.M, bf_max),
+                dtype=I32, device=ops.dev)
+            self._plan = global_update_plan(E, M)
+            self._bf_max = bf_max
+        outs = [torch.empty(n, dtype=I32, device=dev) for n in (E, M, 1)]
+        _kernels.LAUNCHES["global_update"] += 1
+        rc = so.pt_global_update_launch(
+            *ops.ptrs, *ptrs, *[o.data_ptr() for o in outs], acc,
+            self._ws.data_ptr(), E, M, int(eps), int(bf_max), *self._plan,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _kernels.launch_check(rc, "global_update")
+        return tuple(outs)
 
 
 def solve_device_tiled(costs, supply, capacity, unsched_cost, arc_cap,
                        init_prices, init_flows, init_fb, eps_sched,
                        max_iter_total, global_every, bf_max, adaptive_bf=0,
                        *, max_iter, scale, total):
-    """``transport._solve_device`` with ``tiled_iteration`` as the
-    iteration body.  Returns ``(F, Ffb, prices, stats)``."""
+    """``transport._solve_device`` with this route's iteration and global
+    update, each created once for the solve.  Returns ``(F, Ffb, prices,
+    stats)``."""
     return _solve_device(
         costs, supply, capacity, unsched_cost, arc_cap, init_prices,
         init_flows, init_fb, eps_sched, max_iter_total, global_every,
         bf_max, adaptive_bf, max_iter=max_iter, scale=scale, total=total,
-        iterate=tiled_iteration,
+        iterate=TiledIteration(), global_update=GlobalUpdate(),
+        stage="solve.device.tiled",
     )

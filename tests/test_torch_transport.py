@@ -189,7 +189,7 @@ def test_tiled_iteration_vs_pallas_interpret():
             jnp.int32(exc_t), eps, 1 if relabel else 0, total,
             interpret=True,
         )
-        got = T_tiled.tiled_iteration(
+        got = T_tiled.TiledIteration()(
             t(F), t(Ffb), t(Fmt), t(pe), t(pm), t(np.array([pt])),
             t(exc_e), t(exc_m), t(exc_t.reshape(1)), st, eps=eps,
             do_relabel=relabel, **ops,
