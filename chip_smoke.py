@@ -14,7 +14,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    against its Python mirror;
 3. kernels: each kernel against its plain torch version on the card, at
    the main path's shapes (B1 also at its gate's two extremes, B2 also at
-   a ragged shape), with exact (zero) tolerance, and timed; B1 beside its
+   a ragged shape and on a pruned plane's shortlist), with exact (zero) tolerance, and timed; B1 beside its
    previous design's time and its one-SM floor (its bound's bytes at the
    rate one SM reads L2, measured by a probe kernel, or its operations at
    one SM's share of the int32 rate); B2 with the CUDA kernels it
@@ -24,13 +24,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and its bound counted from each input read once;
 4. main path: the port's gRPC server answers ``Schedule()`` for a
    10,000-machine / 100,000-pod cluster (one fresh wave, three churn
-   rounds; plus a contended 10,000-machine wave if the first wave never
-   reached the per-iteration kernel); every round must certify, every
-   kernel's launch count must rise (the wave's per-iteration route must
-   run the global-update kernel, with no host read, and at most 3 CUDA
-   kernels per iteration), the route's split by stage is printed, and
-   the same script with the plain versions forced must produce
-   byte-identical deltas.
+   rounds) with the planner tiers at their defaults (pruned planes with
+   the certificate cache, delta-maintained cost planes, cross-band
+   pipelining, overlapped assignment); every round must certify and logs
+   its tier counts, each device solve's route and padded shape, and its
+   stage split; the same script with the plain versions forced must
+   produce byte-identical deltas; then the dense path (the tiers off:
+   the wave and one churn round) with the kernels, whose wave must match
+   the main path's objective and placed count (plus a contended wave if
+   no path reached the per-iteration kernel).  Each path's kernel
+   launches are counted separately; every kernel of a route a path took
+   must have launched in it, and every kernel in some path; B2's route
+   on the wave must run the global-update kernel with no host read and
+   at most 3 CUDA kernels per iteration, and its split by stage is
+   printed;
+5. the kernels again at the main path's own wave solves (the captured
+   operands of its widest B1 and B2 solves), against their plain
+   versions, after the path's launches were read.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--compare N`` prints,
@@ -59,6 +69,18 @@ MACHINES = 10_000
 TASKS = 100_000
 TASK_SHAPES = 100
 CHURN_ROUNDS = 3
+# The dense drive (the planner tiers off) runs the wave and one churn
+# round.
+DENSE_CHURN_ROUNDS = 1
+# The planner tiers the reference runs by default; "0" turns each off.
+TIER_HATCHES = ("POSEIDON_PRUNED", "POSEIDON_CERT_CACHE",
+                "POSEIDON_COST_DELTA", "POSEIDON_PIPELINE_BANDS",
+                "POSEIDON_OVERLAP_ASSIGN")
+TIER_FIELDS = ("solve_tier", "pruned_bands", "pruned_width",
+               "pruned_price_out_rounds", "pruned_escalations",
+               "pruned_cert_accepts", "cost_delta_hits",
+               "cost_rows_rebuilt", "cost_cols_rebuilt",
+               "pipeline_overlap_s")
 # Peak rates for the lower bound on a kernel's time (H100 SXM data sheet).
 # HBM bytes/s; and the int32 rate: the sheet's 67 TFLOP/s fp32 counts an
 # FMA as two operations on 128 fp32 lanes per SM, and an SM has 64 int32
@@ -229,9 +251,10 @@ def _instance(E, M, seed, *, supply_lo, supply_hi, cap_lo, cap_hi):
 
 
 def _pack(costs, supply, cap, unsched, arc, *, flows=None, prices=None,
-          eps_start=None, max_iter_total=8192):
+          eps_start=None, max_iter_total=8192, scale=None):
     """The packed operands solve_transport would dispatch for this
-    instance (padding, scale, epsilon ladder, knobs)."""
+    instance (padding, scale — derived, or pinned by ``scale`` — epsilon
+    ladder, knobs)."""
     from poseidon_tpu_torch.ops import transport as T
 
     E, M = costs.shape
@@ -249,7 +272,7 @@ def _pack(costs, supply, cap, unsched, arc, *, flows=None, prices=None,
     uns_p = np.ones(e_pad, np.int32)
     uns_p[:E] = unsched
     scale, eps_sched, _ = T._host_validate(
-        big[0], sup_p, cap_p, uns_p, None, eps_start, 8000)
+        big[0], sup_p, cap_p, uns_p, scale, eps_start, 8000)
     prices_p = (np.zeros(e_pad + m_pad + 1, np.int32) if prices is None
                 else prices)
     vec = np.concatenate([
@@ -639,15 +662,36 @@ def kernel_cases():
         np.asarray([8192, 4, 64, 1], np.int32),
     ]).astype(np.int32)
     tiled.append(("ragged", big, vec, int(scale)))
+    tiled.append(("pruned",) + _pruned_case(128, 10240))
     gu = [c for c in tiled if c[0] in ("cold", "edge")]
     gu.append(("wide",) + _pack(*_instance(256, 16384, SEED, **wave)))
     return fused, tiled, gu
 
 
+def _pruned_case(E, M):
+    """A pruned-plane solve as the planner's pruned path dispatches it:
+    the shortlist (``plan_shortlist`` at the wave gate) of a slack-rich
+    [E, M] plane, at the full plane's pinned scale."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops import transport_pruned as TP
+
+    costs, supply, cap, unsched, arc = _instance(
+        E, M, SEED, supply_lo=10, supply_hi=30, cap_lo=1, cap_hi=4)
+    plan = TP.plan_shortlist(costs, supply, cap, arc)
+    if plan is None:
+        fail(f"the shortlist planner declined the [{E}, {M}] plane")
+    scale, _ = T.derive_scale(costs, unsched, 8000, *T.padded_shape(E, M))
+    sel = plan.sel
+    big, vec, _ = _pack(costs[:, sel], supply, cap[sel], unsched,
+                        arc[:, sel], scale=scale)
+    return big, vec, scale
+
+
 def kernel_phase():
     fused_cases, tiled_cases, gu_cases = kernel_cases()
     log("kernels: B1 fused ladder vs plain ladder")
-    fused = check_fused(fused_cases, one_sm_l2_rate())
+    l2_rate = one_sm_l2_rate()
+    fused = check_fused(fused_cases, l2_rate)
     log("kernels: B2 per-iteration kernels vs plain iteration")
     tiled = check_tiled(tiled_cases)
     log("kernels: global-update kernel vs plain global update")
@@ -656,7 +700,7 @@ def kernel_phase():
     if DEVICE.type == "cuda" and plans != {0, 1}:
         fail(f"the global-update cases took plans {sorted(plans)}: both "
              "the shared-memory and the workspace plan must run")
-    return fused, tiled, gu
+    return fused, tiled, gu, l2_rate
 
 
 # --------------------------------------------------------------- phase 4
@@ -767,13 +811,65 @@ def route_split(reads0, iters0, sweeps0) -> dict:
     return out
 
 
-def drive(label, nodes, tasks, churn_rounds):
-    """Start the port's server, load the cluster over gRPC, run a fresh
-    wave and ``churn_rounds`` churn rounds.  Returns per-round records
-    (serialized deltas, metrics, wall seconds, launches, host reads,
-    routes, and B2's route split by stage)."""
+def _channel(srv):
     import grpc
 
+    return grpc.insecure_channel(srv.address, options=[
+        # A 100k-pod wave's SchedulingDeltas pass 4 MB.
+        ("grpc.max_receive_message_length", 256 << 20),
+    ])
+
+
+def load_cluster(label, nodes, tasks):
+    """Load the cluster over gRPC into a fresh server of the port and
+    save it as the server's restart checkpoint (its ``checkpoint_path``,
+    under build/, before any round); returns the checkpoint's path.
+    Every drive then starts its server from that checkpoint, as a
+    restarted service does, so the 110k-RPC load runs once per cluster."""
+    from pathlib import Path
+
+    from poseidon_tpu_torch.protos import firmament_pb2 as fpb
+    from poseidon_tpu_torch.protos.services import (
+        FIRMAMENT_METHODS,
+        FIRMAMENT_SERVICE,
+        make_stubs,
+    )
+    from poseidon_tpu_torch.service.server import FirmamentTPUServer
+    from poseidon_tpu_torch.utils.config import FirmamentTPUConfig
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{label}.json"
+    for stale in (path, Path(str(path) + ".warm.npz")):
+        stale.unlink(missing_ok=True)
+    cfg = FirmamentTPUConfig(device=DEVICE.type, checkpoint_path=str(path))
+    with FirmamentTPUServer(cfg, address="127.0.0.1:0") as srv, \
+            _channel(srv) as ch:
+        stubs = make_stubs(ch, FIRMAMENT_SERVICE, FIRMAMENT_METHODS)
+        t0 = time.perf_counter()
+        _send(stubs.NodeAdded, nodes, fpb.NODE_ADDED_OK)
+        _send(stubs.TaskSubmitted, [_task(*t) for t in tasks],
+              fpb.TASK_SUBMITTED_OK)
+        t1 = time.perf_counter()
+        srv.servicer.save_checkpoint()
+        log(f"  [{label}] loaded {len(nodes)} machines, {len(tasks)} pods "
+            f"over gRPC in {t1 - t0:.1f} s; checkpoint saved in "
+            f"{time.perf_counter() - t1:.1f} s")
+    if not path.exists():
+        fail(f"[{label}] the server saved no checkpoint")
+    return path
+
+
+def drive(label, ckpt, tasks, churn_rounds, capture=None):
+    """Start the port's server from the cluster checkpoint ``ckpt``
+    (``load_cluster``), run a fresh wave and ``churn_rounds`` churn
+    rounds over gRPC (each removing and resubmitting 1% of ``tasks``).
+    Returns per-round records (serialized deltas, metrics with the
+    planner tiers' counts, wall seconds, launches, host reads, each
+    device solve's route and padded shape, and B2's route split by
+    stage).  ``capture``, a list, receives the packed operands of the
+    wave's device solves, for the kernels to be held against their plain
+    versions at those shapes afterwards."""
     from poseidon_tpu_torch.ops import _kernels
     from poseidon_tpu_torch.ops import transport as T
     from poseidon_tpu_torch.protos import firmament_pb2 as fpb
@@ -788,20 +884,17 @@ def drive(label, nodes, tasks, churn_rounds):
 
     rounds = []
     rng = np.random.default_rng(SEED + 1)
-    cfg = FirmamentTPUConfig(precompile=True, device=DEVICE.type)
+    cfg = FirmamentTPUConfig(precompile=True, device=DEVICE.type,
+                             checkpoint_path=str(ckpt))
+    t0 = time.perf_counter()
     with FirmamentTPUServer(cfg, address="127.0.0.1:0") as srv, \
-            grpc.insecure_channel(srv.address, options=[
-                # A 100k-pod wave's SchedulingDeltas pass 4 MB.
-                ("grpc.max_receive_message_length", 256 << 20),
-            ]) as ch:
+            _channel(srv) as ch:
         stubs = make_stubs(ch, FIRMAMENT_SERVICE, FIRMAMENT_METHODS)
         srv.servicer.ensure_precompiled()
-        t0 = time.perf_counter()
-        _send(stubs.NodeAdded, nodes, fpb.NODE_ADDED_OK)
-        _send(stubs.TaskSubmitted, [_task(*t) for t in tasks],
-              fpb.TASK_SUBMITTED_OK)
-        log(f"  [{label}] loaded {len(nodes)} machines, {len(tasks)} pods "
-            f"over gRPC in {time.perf_counter() - t0:.1f} s")
+        st = srv.servicer.state
+        log(f"  [{label}] server restored {len(st.machines)} machines, "
+            f"{len(st.tasks)} pods from the checkpoint in "
+            f"{time.perf_counter() - t0:.1f} s")
         live = list(tasks)
         for r in range(churn_rounds + 1):
             if r > 0:  # churn: remove and resubmit 1% of the pods
@@ -820,8 +913,19 @@ def drive(label, nodes, tasks, churn_rounds):
                       Counter(T._Telemetry.route_iters),
                       Counter(T._Telemetry.route_sweeps))
             k0 = _b2_kernel_count()
+            packed = T._solve_device_packed
+            if capture is not None and r == 0:
+                def spy(big, vec, **kw):
+                    capture.append((kw["impl"], big.copy(), vec.copy(),
+                                    kw["scale"]))
+                    return packed(big, vec, **kw)
+
+                T._solve_device_packed = spy
             t0 = time.perf_counter()
-            out = stubs.Schedule(fpb.ScheduleRequest())
+            try:
+                out = stubs.Schedule(fpb.ScheduleRequest())
+            finally:
+                T._solve_device_packed = packed
             wall = time.perf_counter() - t0
             k1 = _b2_kernel_count()
             m = srv.servicer.planner.last_metrics
@@ -834,21 +938,26 @@ def drive(label, nodes, tasks, churn_rounds):
                 converged=m.converged, device_calls=m.device_calls,
                 launches=dict(_kernels.LAUNCHES),
                 host_reads=T.host_read_count() - reads0,
-                routes=sorted(k for k, n in T._Telemetry.routes.items()
-                              if n > routes0.get(k, 0)),
+                routes={f"{k[0]}[{k[1]}, {k[2]}]": n - routes0.get(k, 0)
+                        for k, n in sorted(T._Telemetry.routes.items())
+                        if n > routes0.get(k, 0)},
+                tiers={f: getattr(m, f) for f in TIER_FIELDS},
+                stages={k: v[0] for k, v in stagetimer.snapshot().items()},
                 split=route_split(*split0),
                 b2_kernels=None if k0 is None else k1 - k0,
             )
             rounds.append(rec)
             log(f"  [{label}] {rec['kind']}: {wall:.3f} s wall, placed "
-                f"{m.placed}, unscheduled {m.unscheduled}, iterations "
-                f"{m.iterations}, bf {m.bf_sweeps}, device solves "
-                f"{m.device_calls}, launches {rec['launches']}, host reads "
-                f"{rec['host_reads']}, gap {m.gap_bound}, routes "
+                f"{m.placed}, unscheduled {m.unscheduled}, objective "
+                f"{m.objective}, iterations {m.iterations}, bf "
+                f"{m.bf_sweeps}, device solves {m.device_calls}, launches "
+                f"{rec['launches']}, host reads {rec['host_reads']}, gap "
+                f"{m.gap_bound}, solves by route [E_pad, M_pad] "
                 f"{rec['routes']}")
+            log(f"    tiers: {json.dumps(rec['tiers'])}")
             log("    stages (s): " + ", ".join(
-                f"{k} {v[0]:.3f}" for k, v in sorted(
-                    stagetimer.snapshot().items(), key=lambda kv: -kv[1][0])))
+                f"{k} {v:.4f}" for k, v in sorted(
+                    rec["stages"].items(), key=lambda kv: -kv[1])))
             if rec["split"]["stages"]["solve.device.tiled"]["calls"]:
                 log("    B2 route split: " + json.dumps(rec["split"]))
             if m.gap_bound != 0.0 or not m.converged:
@@ -865,48 +974,104 @@ def _set_plain(plain: bool) -> None:
             os.environ.pop(k, None)
 
 
-def main_path():
-    """The main path with the kernels, then again with the plain versions
-    forced; the deltas must match byte for byte."""
+def _set_tiers(on: bool) -> None:
+    """The planner tiers at their defaults (on), or each turned off."""
+    for k in TIER_HATCHES:
+        if on:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = "0"
+
+
+KERNEL_NAMES = ("fused_ladder", "tiled_iteration", "global_update")
+# The kernels a solve route launches.
+ROUTE_KERNELS = {"fused": ("fused_ladder",),
+                 "tiled": ("tiled_iteration", "global_update")}
+
+
+def _path_launches(rounds) -> dict:
+    return {k: sum(r["launches"][k] for r in rounds) for k in KERNEL_NAMES}
+
+
+def _check_path(name, rounds) -> None:
+    """Every kernel of the routes this path's solves took was launched,
+    and counted, in this path's run."""
+    launched = _path_launches(rounds)
+    for r in rounds:
+        for route in r["routes"]:
+            for k in ROUTE_KERNELS.get(route.split("[")[0], ()):
+                if launched[k] == 0:
+                    fail(f"[{name}] {r['kind']} solved on {route} but "
+                         f"{k} was never launched")
+
+
+def main_path(capture):
+    """The main path — the planner tiers at their defaults — with the
+    kernels, then again with the plain versions forced (the deltas must
+    match byte for byte); then the dense path, the tiers off, with the
+    kernels.  Where the paths' waves never reached the per-iteration
+    kernel, a contended wave stands in for it.  ``capture`` receives the
+    main path's wave solves (see ``drive``)."""
     from poseidon_tpu_torch.utils import stagetimer
 
-    scenarios = [("wave", _population(), CHURN_ROUNDS)]
+    nodes, tasks = _population()
+    ckpt = load_cluster("population", nodes, tasks)
+    del nodes
     results = {}
-    for name, (nodes, tasks), churn in scenarios:
-        _set_plain(False)
-        log(f"main path: {name}, kernels")
-        stagetimer.set_device_timing(True)
-        kern = drive(name, nodes, tasks, churn)
-        stagetimer.set_device_timing(False)
-        launched = kern[0]["launches"]
-        if name == "wave" and launched["tiled_iteration"] == 0:
-            # The wave never reached the per-iteration kernel: show where
-            # each solve routed and drive a contended wave for it.
-            log(f"  the wave's solves routed to {kern[0]['routes']}; "
-                "adding a contended 10k-machine wave")
-            scenarios.append(("contended", _contended(), 0))
-        _set_plain(True)
-        log(f"main path: {name}, plain versions forced")
-        plain = drive(name, nodes, tasks, churn)
-        _set_plain(False)
-        for a, b in zip(kern, plain):
-            if a["deltas"] != b["deltas"]:
-                fail(f"[{name}] {a['kind']}: deltas differ between the "
-                     "kernel and plain runs")
-        log(f"  [{name}] deltas byte-identical to the plain run over "
-            f"{len(kern)} rounds")
-        results[name] = kern
-    total = {k: sum(r["launches"][k] for rs in results.values()
-                    for r in rs)
-             for k in ("fused_ladder", "tiled_iteration", "global_update")}
-    wave_l = results["wave"][0]["launches"]
-    if wave_l["fused_ladder"] == 0:
+    _set_tiers(True)
+    _set_plain(False)
+    log("main path (tiers on): wave, kernels")
+    stagetimer.set_device_timing(True)
+    kern = drive("tiers-on", ckpt, tasks, CHURN_ROUNDS, capture=capture)
+    stagetimer.set_device_timing(False)
+    _check_path("tiers-on", kern)
+    _set_plain(True)
+    log("main path (tiers on): wave, plain versions forced")
+    plain = drive("tiers-on", ckpt, tasks, CHURN_ROUNDS)
+    _set_plain(False)
+    for a, b in zip(kern, plain):
+        if a["deltas"] != b["deltas"]:
+            fail(f"[tiers-on] {a['kind']}: deltas differ between the "
+                 "kernel and plain runs")
+    log(f"  [tiers-on] deltas byte-identical to the plain run over "
+        f"{len(kern)} rounds")
+    results["tiers_on"] = kern
+
+    _set_tiers(False)
+    log("dense path (tiers off): wave, kernels")
+    stagetimer.set_device_timing(True)
+    dense = drive("dense", ckpt, tasks, DENSE_CHURN_ROUNDS)
+    stagetimer.set_device_timing(False)
+    _set_tiers(True)
+    _check_path("dense", dense)
+    results["dense"] = dense
+    w_on, w_off = kern[0], dense[0]
+    log(f"  waves: tiers on objective {w_on['objective']} placed "
+        f"{w_on['placed']}; tiers off objective {w_off['objective']} "
+        f"placed {w_off['placed']}")
+    if (w_on["objective"], w_on["placed"]) != \
+            (w_off["objective"], w_off["placed"]):
+        fail("the tiers-on and tiers-off waves differ in objective or "
+             "placed count")
+
+    if not any(r["launches"]["tiled_iteration"]
+               for rs in results.values() for r in rs):
+        log("  no wave reached the per-iteration kernel; adding a "
+            "contended 10k-machine wave")
+        nodes, tasks = _contended()
+        results["contended"] = drive(
+            "contended", load_cluster("contended", nodes, tasks), tasks, 0)
+        _check_path("contended", results["contended"])
+    launches = {name: _path_launches(rs) for name, rs in results.items()}
+    log(f"  launches by path: {json.dumps(launches)}")
+    if kern[0]["launches"]["fused_ladder"] == 0:
         fail("the fresh wave launched no fused ladder kernel")
-    if total["tiled_iteration"] == 0:
-        fail("the main path launched no per-iteration kernel")
-    # B2's route on the wave (or on the contended wave that stood in for
-    # it): its global updates ran as the kernel, with no host read, and
-    # each iteration launched at most three CUDA kernels.
+    for k in KERNEL_NAMES:
+        if not any(n[k] for n in launches.values()):
+            fail(f"no path launched {k}")
+    # B2's route on a wave (the first path's wave that took it): its
+    # global updates ran as the kernel, with no host read, and each
+    # iteration launched at most three CUDA kernels.
     b2 = next(rs[0] for rs in results.values()
               if rs[0]["launches"]["tiled_iteration"])
     if b2["launches"]["global_update"] == 0:
@@ -923,17 +1088,37 @@ def main_path():
         fail(f"the wave's global updates made {gu_reads} host reads")
     if per_iter is not None and per_iter > 3:
         fail(f"B2 launched {per_iter} CUDA kernels per iteration")
-    return results, total
+    return results, launches
+
+
+def main_path_cases(capture):
+    """The main path's own wave solves, as kernel cases: each route's
+    widest solve other than the coarse [E, 256] start (a kernel case of
+    its own)."""
+    best = {}
+    for impl, big, vec, scale in capture:
+        E, M = big.shape[1:]
+        if impl == "lax" or M == 256:
+            continue
+        if impl not in best or M > best[impl][1].shape[2]:
+            best[impl] = ("main-path wave", big, vec, scale)
+    return best
 
 
 def kernels_record(fused, tiled, gu, launches):
+    """The kernels line.  ``launches`` is ``{path: {kernel: n}}``, each
+    path's count read just after its own drive; a row's ``launches`` is
+    their sum over the paths, ``launches_by_path`` the split."""
     def row(name, source, replaces, unit, cases, n):
         lead = cases[0]
         bound_bytes = lead["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_ops = lead["ops"] / INT32_OPS_PER_S * 1e3
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n, "launch_unit": unit,
+            "replaces": replaces,
+            "launches": sum(p[n] for p in launches.values()),
+            "launches_by_path": {k: p[n] for k, p in launches.items()},
+            "launch_unit": unit,
             "max_abs_err": max(c["err"] for c in cases),
             "equal": all(c["err"] == 0 for c in cases),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
@@ -954,17 +1139,17 @@ def kernels_record(fused, tiled, gu, launches):
         row("fused_ladder", "poseidon_tpu_torch/ops/csrc/fused_ladder.cu",
             "poseidon_tpu/ops/transport_fused.py:113",
             "one kernel launch: a whole epsilon ladder", fused,
-            launches["fused_ladder"]),
+            "fused_ladder"),
         row("tiled_iteration",
             "poseidon_tpu_torch/ops/csrc/tiled_iteration.cu",
             "poseidon_tpu/ops/transport_tiled.py:73",
             "one push/relabel iteration: a sequence of three CUDA kernels",
-            tiled, launches["tiled_iteration"]),
+            tiled, "tiled_iteration"),
         row("global_update",
             "poseidon_tpu_torch/ops/csrc/global_update.cu",
             "poseidon_tpu/ops/transport.py:548",
             "one cooperative launch: a whole global update", gu,
-            launches["global_update"]),
+            "global_update"),
     ]}
 
 
@@ -995,8 +1180,9 @@ def compare(runs: int) -> int:
         _run_route(*_pack(*inst), impl)
     stagetimer.set_device_timing(True)
     nodes, tasks = _population()
+    ckpt = load_cluster("population", nodes, tasks)
     for _ in range(runs):
-        rec = drive("wave", nodes, tasks, 0)[0]
+        rec = drive("wave", ckpt, tasks, 0)[0]
         print(json.dumps({"route_split": rec["split"],
                           "wall_s": rec["wall_s"], "smi": info["smi"]}),
               flush=True)
@@ -1008,11 +1194,22 @@ def main(argv) -> int:
         return compare(int(argv[1]))
     info = device_info()
     build_kernels()
-    fused, tiled, gu = kernel_phase()
-    results, launches = main_path()
+    fused, tiled, gu, l2_rate = kernel_phase()
+    capture = []
+    results, launches = main_path(capture)
+    # The kernels at the main path's own wave shapes (after the path's
+    # launches were read, so these comparisons are not counted).
+    cases = main_path_cases(capture)
+    del capture
+    if "fused" in cases:
+        log("kernels: B1 at the main path's wave shape")
+        fused += check_fused([cases["fused"]], l2_rate)
+    if "tiled" in cases:
+        log("kernels: B2 at the main path's wave shape")
+        tiled += check_tiled([cases["tiled"]])
     # Output check: the wave placed pods and every round certified (the
     # drive fails otherwise); the churn rounds re-placed the churned pods.
-    wave = results["wave"]
+    wave = results["tiers_on"]
     if wave[0]["placed"] <= 0:
         fail("the fresh wave placed nothing")
     print(info["smi"], flush=True)

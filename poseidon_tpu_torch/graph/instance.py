@@ -16,10 +16,15 @@ delta vocabulary scheduling_delta.proto:24-40):
    it already runs (placement stability minimizes MIGRATEs);
 6. diff against previous placements -> SchedulingDeltas and commit.
 
-This slice runs the dense banded path with the host two-dispatch coarse
-start: the reference's pruned, sharded, chained and delta-plane tiers and
-its band pipelining are not ported yet, and its planner with those tiers
-off is the reference this one matches placement for placement.
+The reference's default-on planner tiers run here as they do there: the
+pruned-plane solve with its excluded-column certificate cache
+(ops/transport_pruned.py), delta-maintained cost planes
+(costmodel/delta.py), cross-band cost-build pipelining
+(graph/pipeline.py) and the overlapped EC->task assignment, with the
+host two-dispatch coarse start.  The worker threads of the last two do
+host numpy only; every device solve runs on the calling thread.  Left
+out: the sharded tier, the chained wave, the ``ssp`` solver, the fused
+coarse program and the streaming engine's branches.
 """
 
 from __future__ import annotations
@@ -33,20 +38,27 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from poseidon_tpu_torch.costmodel.base import CostModel, slice_ecs
+from poseidon_tpu_torch.costmodel.delta import CostPlaneCache
+from poseidon_tpu_torch.graph.pipeline import CostPipeline, pipelining_enabled
 from poseidon_tpu_torch.graph.state import ClusterState
+from poseidon_tpu_torch.ops import transport_pruned as tp
 from poseidon_tpu_torch.ops.transport import (
     INF_COST,
     NUM_PHASES,
     TransportSolution,
     accel_policy,
+    bucket_size,
     coarse_precheck,
     coarse_warm_start,
+    derive_scale,
     device_call_count,
     greedy_flows,
+    padded_shape,
     resolve_device,
     solve_transport_selective,
     sparse_adm_cells,
 )
+from poseidon_tpu_torch.utils.hatches import hatch_bool, hatch_int
 from poseidon_tpu_torch.utils.stagetimer import stage as _stage
 
 log = logging.getLogger("poseidon_tpu_torch.planner")
@@ -92,12 +104,33 @@ class RoundMetrics:
     bf_sweeps: int = 0
     # Gang-atomicity repair firings (_forbid_partial_gangs) this round.
     repair_firings: int = 0
+    # Pruned-plane solve path (ops/transport_pruned): bands solved on a
+    # column shortlist, the widest shortlist used, price-out re-solve
+    # rounds, escalations back to the dense path, and accepts certified
+    # by the incremental excluded-column bound instead of the full-plane
+    # lift + certificate pass.
+    pruned_bands: int = 0
+    pruned_width: int = 0
+    pruned_price_out_rounds: int = 0
+    pruned_escalations: int = 0
+    pruned_cert_accepts: int = 0
+    # Delta-maintained cost planes (costmodel/delta.py): band builds
+    # served incrementally this round, and the dirty row/column slices
+    # they rebuilt.
+    cost_delta_hits: int = 0
+    cost_rows_rebuilt: int = 0
+    cost_cols_rebuilt: int = 0
+    # Seconds the cross-band pipeline's speculative cost build ran
+    # concurrently with a band solve (graph/pipeline.py).
+    pipeline_overlap_s: float = 0.0
     # Worst (lowest) ladder entry phase across the round's band solves
     # (NUM_PHASES: every solve was answered without a device ladder).
     ladder_entry_phase: int = 0
     # Per-epsilon-phase iteration split summed across band solves.
     solve_phase_iters: list = field(default_factory=list)
-    # "dense", "host_greedy" (uncertified last resort), "quiet" or "none".
+    # The worst band's tier: "pruned" (shortlist + full-plane
+    # certificate), "dense", "host_greedy" (uncertified last resort),
+    # or "quiet"/"none" for skipped/degenerate rounds.
     solve_tier: str = "none"
     # False when a band's solve exhausted its budget even on a cold retry.
     converged: bool = True
@@ -220,6 +253,25 @@ def _column_caps(ecs_b, cm, mt, committed_cpu, committed_ram,
             col_cap,
         )
     return np.clip(col_cap, 0, None).astype(np.int32), net_req
+_ASSIGN_POOL = None
+
+
+def _shared_assign_pool():
+    """One process-wide single-worker pool for assignment pipelining.
+
+    A single worker keeps chunk execution strictly serialized (overlap
+    with the device, never with another chunk); the chunks are host
+    numpy only, so no CUDA call leaves the main thread."""
+    global _ASSIGN_POOL
+    if _ASSIGN_POOL is None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _ASSIGN_POOL = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="poseidon-assign"
+        )
+    return _ASSIGN_POOL
+
+
 def _with_usage(mt, cpu_used, ram_used, net_used, slots_free):
     """MachineTable with this band's committed-resource view.
 
@@ -281,15 +333,51 @@ class RoundPlanner:
         self.device = resolve_device(device)
         # Warm-start frames, one per size band (see _solve_banded).
         self._warm_bands: Dict[int, _WarmState] = {}
+        # Delta-maintained cost planes (costmodel/delta.py): per-band
+        # [E, M] planes patched from the round's dirty rows/columns, the
+        # model's full build kept as the oracle.
+        self._plane_cache = CostPlaneCache(cost_model)
+        # Cross-band pipeline (graph/pipeline.py), built on first use.
+        self._cost_pipeline = None
+        # Last build's delta stats for the band being solved (read by
+        # the shortlist revival).
+        self._last_build_stats: dict = self._plane_cache.last_stats
+        # Reduced-plane certificate caches and accepted shortlists, per
+        # band (the shortlist as machine uuids, so column churn remaps).
+        self._cert_bands: Dict[int, tp.ExcludedColumnCert] = {}
+        self._shortlist_bands: Dict[int, Tuple[List[str], int]] = {}
         # Per-round resubmission-affinity hint: per-EC arrays of prior
         # machine columns for pending members (None when nothing matched).
         self._round_prior: Optional[List[np.ndarray]] = None
         self._last_generation = -1
         self._last_unscheduled = 1  # force a solve on the first round
         self.last_metrics = RoundMetrics()
+        # Per-round solve accumulators (reset in _solve_banded).
         self._hidden_iters = 0
         self._hidden_bf = 0
         self._repair_firings = 0
+        self._pruned_bands = 0
+        self._pruned_width = 0
+        self._pruned_rounds = 0
+        self._pruned_escalations = 0
+        self._cert_accepts = 0
+        self._cost_delta_hits = 0
+        self._cost_rows_rebuilt = 0
+        self._cost_cols_rebuilt = 0
+        self._pipeline_overlap = 0.0
+        self._tier_rank = -1
+
+    def set_cost_model(self, cost_model) -> None:
+        """Swap the cost model before a drive's first round.  Rebuilds the
+        delta-plane cache and drops certificate/shortlist reuse (every
+        cached cell priced by the old model is invalid under the new
+        one); warm solver frames survive."""
+        self.cost_model = cost_model
+        self._plane_cache = CostPlaneCache(cost_model)
+        self._cost_pipeline = None
+        self._last_build_stats = self._plane_cache.last_stats
+        self._cert_bands = {}
+        self._shortlist_bands = {}
 
     # ------------------------------------------------------------- warm frames
 
@@ -429,15 +517,44 @@ class RoundPlanner:
 
         t_solve = time.perf_counter()
         calls0 = device_call_count()
-        chunks: list = []
+        # Assignment pipelining: a finished band's EC->task assignment
+        # (host numpy) runs on a worker thread while the next band's
+        # solve occupies the device.  The last band's chunk is deferred
+        # to the assign phase below, after a join, so chunks never run
+        # concurrently; chunks merge in band order, identical to the
+        # POSEIDON_OVERLAP_ASSIGN=0 path.
+        chunks: dict = {}
+        futures: list = []
+        deferred: list = []
+        pool = None
+        if hatch_bool("POSEIDON_OVERLAP_ASSIGN"):
+            pool = _shared_assign_pool()
 
-        def on_band(idx, flows_full):
-            # A band's EC->task assignment is final the moment its flows
-            # are; chunks merge in band order and commit once below.
-            chunks.append(self._assign_ecs(idx.tolist(), flows_full, view,
-                                           metrics))
+        def on_band(idx, is_last, flows_full):
+            order = len(chunks)
+            chunks[order] = None
 
-        flows = self._solve_banded(ecs, mt, metrics, on_band=on_band)
+            def work():
+                chunks[order] = self._assign_ecs(
+                    idx.tolist(), flows_full, view, metrics
+                )
+
+            if pool is not None and not is_last:
+                futures.append(pool.submit(work))
+            else:
+                deferred.append(work)
+
+        try:
+            flows = self._solve_banded(ecs, mt, metrics, on_band=on_band)
+        except BaseException:
+            # A failed solve must not leave a worker chunk mutating shared
+            # state for a round that never commits: join, then propagate.
+            for f in futures:
+                try:
+                    f.result()
+                except Exception:  # noqa: BLE001 - the solve's error wins
+                    pass
+            raise
         metrics.device_calls = device_call_count() - calls0
         metrics.solve_seconds = time.perf_counter() - t_solve
         if metrics.gap_bound == float("inf"):
@@ -451,9 +568,16 @@ class RoundPlanner:
 
         with _stage("round.assign"):
             if chunks:
+                # Join the worker, run the deferred last chunk, merge in
+                # band order, commit once.
+                for f in futures:
+                    f.result()
+                for work in deferred:
+                    work()
                 deltas = []
                 placements: list = []
-                for d, p, hints in chunks:
+                for k in sorted(chunks):
+                    d, p, hints = chunks[k]
                     deltas.extend(d)
                     placements.extend(p)
                     self._apply_hint_reinserts(hints)
@@ -656,7 +780,9 @@ class RoundPlanner:
         flow resource-safe by construction.  Bands run largest-first, each
         consuming what the previous ones committed; gang atomicity is
         enforced per band by forbidding partially-placed gang rows and
-        re-solving warm.
+        re-solving warm.  Each band's plane comes from the delta-plane
+        cache, through the cross-band pipeline when more than one band
+        group remains.
         """
         E, M = ecs.num_ecs, mt.num_machines
         flows_full = np.zeros((E, M), dtype=np.int32)
@@ -685,10 +811,20 @@ class RoundPlanner:
         self._hidden_iters = 0
         self._hidden_bf = 0
         self._repair_firings = 0
+        self._pruned_bands = 0
+        self._pruned_width = 0
+        self._pruned_rounds = 0
+        self._pruned_escalations = 0
+        self._cert_accepts = 0
+        self._cost_delta_hits = 0
+        self._cost_rows_rebuilt = 0
+        self._cost_cols_rebuilt = 0
+        self._pipeline_overlap = 0.0
+        self._tier_rank = -1
         entry_min = -1
         phase_sums = None
-        tier = -1
         remaining = sorted(set(bands.tolist()))
+        pipe = self._maybe_pipeline(len(remaining))
         while remaining:
             n_bands, idx = self._next_band_group(
                 remaining, bands, ecs, mt, committed_cpu, committed_ram,
@@ -702,14 +838,51 @@ class RoundPlanner:
                 np.maximum(base_slots - committed_slots, 0).astype(np.int32),
             )
             with _stage("round.cost_build"):
-                cm = self.cost_model.build(ecs_b, mt_b)
+                if pipe is not None:
+                    cm, build_stats = pipe.build(band, ecs_b, mt_b)
+                else:
+                    cm = self._plane_cache.build(band, ecs_b, mt_b)
+                    build_stats = self._plane_cache.last_stats
+            self._note_build_stats(build_stats)
             col_cap, net_req = _column_caps(
                 ecs_b, cm, mt, committed_cpu, committed_ram, committed_net
             )
+
+            idx_next = None
+            if pipe is not None and remaining:
+                # Speculate band k+1's plane against the PRE-commit usage
+                # while this band solves: the authoritative build next
+                # iteration patches exactly the columns this band's flows
+                # dirty.  Usage arrays are copied here (frozen) — the live
+                # committed arrays keep mutating below.
+                _, idx_next = self._next_band_group(
+                    remaining, bands, ecs, mt, committed_cpu,
+                    committed_ram, committed_net,
+                )
+                if idx_next.size < 8:
+                    # A near-empty band rebuilds faster than the cache
+                    # can diff it (the delta gate declines it anyway).
+                    idx_next = None
+            if idx_next is not None:
+                pipe.speculate(
+                    int(remaining[0]),
+                    slice_ecs(ecs, idx_next),
+                    _with_usage(
+                        mt, committed_cpu.copy(), committed_ram.copy(),
+                        committed_net.copy(),
+                        np.maximum(
+                            base_slots - committed_slots, 0
+                        ).astype(np.int32),
+                    ),
+                )
+
+            t_band = time.perf_counter()
             with _stage("round.solve_band"):
-                sol, band_tier = self._solve_band(band, ecs_b, cm, col_cap,
-                                                  mt.uuids)
-            tier = max(tier, self._TIERS.index(band_tier))
+                sol = self._solve_band(band, ecs_b, cm, col_cap, mt.uuids)
+            if pipe is not None:
+                self._pipeline_overlap += pipe.overlap_with(
+                    t_band, time.perf_counter()
+                )
             objective += sol.objective
             gap = max(gap, sol.gap_bound)
             iters += sol.iterations
@@ -730,33 +903,69 @@ class RoundPlanner:
             committed_net += fl.T @ net_req.astype(np.int64)
             committed_slots += fl.sum(axis=0)
             if on_band is not None:
-                on_band(idx, flows_full)
+                # Hand this band's rows to the caller (assignment
+                # pipelining) the moment its flows are final.  Later
+                # bands write DISJOINT rows of flows_full, so a worker
+                # reading this band's rows races nothing.
+                on_band(idx, not remaining, flows_full)
 
         metrics.objective = objective
         metrics.gap_bound = gap
         metrics.iterations = iters + self._hidden_iters
         metrics.bf_sweeps += self._hidden_bf
         metrics.repair_firings = self._repair_firings
+        metrics.pruned_bands = self._pruned_bands
+        metrics.pruned_width = self._pruned_width
+        metrics.pruned_price_out_rounds = self._pruned_rounds
+        metrics.pruned_escalations = self._pruned_escalations
+        metrics.pruned_cert_accepts = self._cert_accepts
+        metrics.cost_delta_hits = self._cost_delta_hits
+        metrics.cost_rows_rebuilt = self._cost_rows_rebuilt
+        metrics.cost_cols_rebuilt = self._cost_cols_rebuilt
+        metrics.pipeline_overlap_s = round(self._pipeline_overlap, 6)
         metrics.ladder_entry_phase = entry_min if entry_min >= 0 else NUM_PHASES
         if phase_sums is not None:
             metrics.solve_phase_iters = list(phase_sums)
-        if tier >= 0:
-            metrics.solve_tier = self._TIERS[tier]
+        if self._tier_rank >= 0:
+            metrics.solve_tier = self._TIERS[self._tier_rank]
         return flows_full
+
+    def _maybe_pipeline(self, n_bands: int):
+        """The cross-band pipeline, when it can pay: more than one band
+        group to ladder through, the delta plane cache live (a
+        speculative build must warm the cache, or joining it buys
+        nothing), and the env gate open."""
+        if n_bands < 2:
+            return None
+        if not pipelining_enabled() or not self._plane_cache.enabled():
+            return None
+        if self._cost_pipeline is None:
+            self._cost_pipeline = CostPipeline(self._plane_cache)
+        return self._cost_pipeline
+
+    def _note_build_stats(self, stats: dict) -> None:
+        self._last_build_stats = stats
+        if stats.get("delta_hit"):
+            self._cost_delta_hits += 1
+            self._cost_rows_rebuilt += stats["rows_rebuilt"]
+            self._cost_cols_rebuilt += stats["cols_rebuilt"]
 
     # The degraded-mode ladder, best tier first (the worst tier any band
     # used is the round's).
-    _TIERS = ("dense", "host_greedy")
+    _TIERS = ("pruned", "dense", "host_greedy")
+
+    def _note_tier(self, tier: str) -> None:
+        self._tier_rank = max(self._tier_rank, self._TIERS.index(tier))
 
     def _solve_host_greedy(self, ecs_b, cm, col_cap):
         """The last rung of the degraded ladder: a deterministic,
         host-only feasible placement (cheapest-arc greedy) used when
-        the dense solve can certify (a budget-exhausted cold solve).
-        Feasible
-        by construction (column/arc caps respected), gang-atomic
-        (partially-covered gang rows are dropped whole), and UNCERTIFIED:
-        ``gap_bound`` is inf, so the round reports ``converged=False``
-        and no warm frame is saved."""
+        neither the pruned nor the dense solve can certify (a
+        budget-exhausted cold solve).  Feasible by construction
+        (column/arc caps respected), gang-atomic (partially-covered gang
+        rows are dropped whole), and UNCERTIFIED: ``gap_bound`` is inf,
+        so the round reports ``converged=False`` and no warm frame is
+        saved."""
         E, M = cm.costs.shape
         flows = greedy_flows(
             cm.costs, ecs_b.supply, col_cap, cm.arc_capacity
@@ -783,10 +992,14 @@ class RoundPlanner:
     def _solve_band(self, band, ecs_b, cm, col_cap, machine_uuids):
         """One band's solve: warm-started (a band's frame is stable across
         rounds because an EC's band is a function of its size), with a
-        drift-derived epsilon start, then the plane pipeline
-        (``_solve_plane``); the deterministic host-greedy placement is the
-        last resort when even the cold retry exhausts its budget.  Returns
-        ``(sol, tier)``."""
+        drift-derived epsilon start, then the plane pipeline — on the
+        pruned plane with a full-plane price-out certificate when the
+        shortlist gate fires (``_try_pruned_band``), else on the full
+        plane (``_solve_plane``); the deterministic host-greedy
+        placement is the last resort when even the cold retry exhausts
+        its budget.  Warm frames are always saved in FULL-plane
+        coordinates, so carried prices survive the pruned path's column
+        remap round to round."""
         eps_start = None
         prices = flows0 = unsched0 = None
         if self.incremental:
@@ -804,16 +1017,31 @@ class RoundPlanner:
                 # A carried frame without a drift-derived epsilon (the EC
                 # set churned) is net-harmful: cold is fast and certified.
                 prices = flows0 = unsched0 = None
-        sol, effective_costs = self._solve_plane(
-            ecs_b, cm.costs, col_cap, cm.arc_capacity, cm.unsched_cost,
-            (prices, flows0, unsched0, eps_start),
-        )
-        tier = "dense"
+        warm_state = (prices, flows0, unsched0, eps_start)
+
+        carry_box: dict = {}
+        out = self._try_pruned_band(band, ecs_b, cm, col_cap,
+                                    machine_uuids, warm_state, carry_box)
+        tier = "pruned"
+        if out is None:
+            # Escalations hand the dense path the last certified reduced
+            # solve's LIFTED full-plane state (prices/flows + the exact
+            # eps it is eps-CS at) instead of restarting from the stale
+            # warm frame / cold coarse pipeline (gated with the adaptive
+            # ladder: POSEIDON_ADAPTIVE_LADDER=0 restores the restart).
+            out = self._solve_plane(
+                ecs_b, cm.costs, col_cap, cm.arc_capacity,
+                cm.unsched_cost, carry_box.get("warm", warm_state),
+                warm_eps_exact="warm" in carry_box,
+            )
+            tier = "dense"
+        sol, effective_costs = out
         if sol.gap_bound == float("inf"):
             self._hidden_iters += sol.iterations
             self._hidden_bf += sol.bf_sweeps
             sol = self._solve_host_greedy(ecs_b, cm, col_cap)
             tier = "host_greedy"
+        self._note_tier(tier)
 
         if sol.gap_bound != float("inf"):
             self._warm_bands[band] = _WarmState(
@@ -830,16 +1058,239 @@ class RoundPlanner:
         else:
             # A budget-exhausted state has no usable dual structure.
             self._warm_bands.pop(band, None)
-        return sol, tier
+        return sol
+
+    def _try_pruned_band(self, band, ecs_b, cm, col_cap, machine_uuids,
+                         warm_state, carry_box=None):
+        """Pruned-plane attempt (ops/transport_pruned): run the band's
+        pipeline — coarse start, warm dispatch — on the union of per-row
+        cheapest-column shortlists, certify the lifted solution against
+        the full plane (growing the shortlist by the price-out's
+        violating columns when the certificate fails), and only then
+        apply gang-atomicity repair: each firing forbids rows in the
+        BASE costs and re-solves through the same certified pruned loop,
+        so every forbid decision is made on a full-plane-certified
+        optimum.  Returns ``(sol, effective_costs_full)``, or ``None``
+        when the gate declines or any stage escalates — the caller then
+        runs the dense path with the SAME warm state (or the escalation's
+        carry)."""
+        if not hatch_bool("POSEIDON_PRUNED"):
+            return None
+        E, M = cm.costs.shape
+        scale_full = None
+        repair = (
+            self.gang_scheduling and ecs_b.is_gang is not None
+            and bool(ecs_b.is_gang.any())
+        )
+        # Reduced-plane certificate cache: fed the delta plane cache's
+        # dirty sets every build (the ledger), armed once the band's
+        # scale is known.  POSEIDON_CERT_CACHE=0 escape hatch.
+        ledger = self._plane_cache.take_ledger(band)
+        cert = None
+        if hatch_bool("POSEIDON_CERT_CACHE"):
+            cert = self._cert_bands.get(band)
+            if cert is None:
+                cert = self._cert_bands[band] = tp.ExcludedColumnCert()
+            cert.note_build(ecs_b.ec_ids, machine_uuids, ledger)
+        eff_base = cm.costs
+        warm = warm_state
+        sol = None
+        for attempt in range(int(ecs_b.is_gang.sum()) + 1 if repair else 1):
+            prices, flows0, unsched0, eps_start = warm
+            must = flows0.sum(axis=0) > 0 if flows0 is not None else None
+            plan = self._revive_shortlist(
+                band, ecs_b, col_cap, must, machine_uuids,
+                # Revival bets that last round's cheap columns are still
+                # the cheap columns: the delta path's small dirty sets
+                # evidence it, and an in-round repair attempt gets it
+                # from its own accept.
+                fresh_ok=(attempt > 0
+                          or bool(self._last_build_stats.get("delta_hit"))),
+            )
+            if plan is None:
+                plan = tp.plan_shortlist(
+                    eff_base, ecs_b.supply, col_cap, cm.arc_capacity,
+                    must_include=must,
+                )
+            if plan is None:
+                # Gate declined — the dense path owns the band.
+                self._shortlist_bands.pop(band, None)
+                if attempt > 0:
+                    self._pruned_escalations += 1
+                if sol is not None:
+                    # The accepted-then-abandoned attempt's work stays
+                    # visible (the dense fallback re-solves).
+                    self._hidden_iters += sol.iterations
+                    self._hidden_bf += sol.bf_sweeps
+                return None
+            if scale_full is None:
+                # Reduced solves run at the FULL instance's scale so every
+                # epsilon, dual and certificate stays in full-instance
+                # units; derived only once a plan fired.
+                scale_full, _ = derive_scale(
+                    cm.costs, cm.unsched_cost, self.cost_model.max_cost(),
+                    *padded_shape(E, M),
+                )
+                if cert is not None:
+                    # Arm the certificate cache: fold the deltas
+                    # accumulated since its last use against the BASE
+                    # plane at the band's pinned scale.
+                    cert.begin_attempt(cm.costs, scale_full)
+
+            def solve_on(sel, warm_r, _eff=eff_base, _w=warm):
+                costs_r = np.ascontiguousarray(_eff[:, sel])
+                arc_r = (np.ascontiguousarray(cm.arc_capacity[:, sel])
+                         if cm.arc_capacity is not None else None)
+                p, f, u, eps = _w
+                if warm_r is None and p is not None:
+                    # Round 0: the carried frame, column-sliced onto the
+                    # shortlist (must_include kept every column holding
+                    # warm flow, so nothing is widened away).
+                    warm_r = (
+                        np.concatenate([
+                            p[:E], p[E:E + M][sel], p[E + M:],
+                        ]),
+                        np.ascontiguousarray(f[:, sel]), u, eps,
+                    )
+                elif warm_r is None:
+                    warm_r = (None, None, None, None)
+                return self._solve_plane(
+                    ecs_b, costs_r, col_cap[sel], arc_r, cm.unsched_cost,
+                    warm_r, scale=scale_full, gang_repair=False,
+                )
+
+            prev = sol
+            sol, eff_full, stats = tp.solve_pruned(
+                eff_base, ecs_b.supply, col_cap, cm.unsched_cost,
+                arc_capacity=cm.arc_capacity, scale=scale_full, plan=plan,
+                solve_on=solve_on, cert=cert,
+            )
+            self._pruned_width = max(self._pruned_width, stats["width"])
+            self._pruned_rounds += stats["rounds"]
+            if sol is None:
+                # The escalated attempt's work stays visible, and any
+                # accepted-then-abandoned earlier attempt's.
+                self._shortlist_bands.pop(band, None)
+                self._hidden_iters += stats["iterations"]
+                self._hidden_bf += stats["bf_sweeps"]
+                if prev is not None:
+                    self._hidden_iters += prev.iterations
+                    self._hidden_bf += prev.bf_sweeps
+                self._pruned_escalations += 1
+                if (carry_box is not None
+                        and stats.get("carry") is not None
+                        and eff_base is cm.costs
+                        and hatch_bool("POSEIDON_ADAPTIVE_LADDER")):
+                    # Seed the dense fallback with the last lifted
+                    # full-plane state — only while no gang rows were
+                    # forbidden yet (the dense path re-runs repair from
+                    # the base plane).
+                    carry_box["warm"] = stats["carry"]
+                return None
+            if prev is not None:
+                # The replaced (pre-repair) solve's work.
+                self._hidden_iters += prev.iterations
+                self._hidden_bf += prev.bf_sweeps
+            if stats["sel"] is not None:
+                # The ACCEPTED union, keyed by machine uuid so column
+                # churn remaps next revival.
+                self._shortlist_bands[band] = (
+                    [machine_uuids[int(j)] for j in stats["sel"]],
+                    plan.k,
+                )
+            if stats["cert"] == "certified":
+                self._cert_accepts += 1
+            if not repair:
+                break
+            placed = sol.flows.sum(axis=1)
+            partial = (
+                ecs_b.is_gang & (placed > 0) & (placed < ecs_b.supply)
+            )
+            if not partial.any():
+                break
+            self._repair_firings += 1
+            if eff_base is cm.costs:
+                eff_base = cm.costs.copy()
+            eff_base[partial] = INF_COST
+            # Warm re-solve from the certified state, eps=1 — the dense
+            # repair's policy (_forbid_partial_gangs).
+            warm = (sol.prices, sol.flows, sol.unsched, 1)
+        self._pruned_bands += 1
+        # eff_full of the last accepted solve is eff_base itself (the
+        # closure never forbids rows; repair forbids in the base).
+        return sol, eff_full
+
+    def _revive_shortlist(self, band, ecs_b, col_cap, must,
+                          machine_uuids, fresh_ok):
+        """Revive the band's last ACCEPTED shortlist instead of re-running
+        the O(E*M) planner.  Sound for any column selection (every accept
+        still passes a certificate and violations grow the union), so the
+        gates below are performance gates: the revived union must still
+        satisfy the planner's size/capacity/width invariants, and the
+        plane must not have churned past the delta path (``fresh_ok``).
+        Returns a ShortlistPlan or None (fresh plan)."""
+        if not fresh_ok:
+            return None
+        saved = self._shortlist_bands.get(band)
+        if saved is None:
+            return None
+        uuids, k = saved
+        E = int(ecs_b.supply.size)
+        M = int(col_cap.size)
+        if (not tp.row_gate_ok(
+                E, M, hatch_int("POSEIDON_PRUNE_MIN_ROWS",
+                                tp.PRUNE_MIN_ROWS))
+                or M < hatch_int("POSEIDON_PRUNE_MIN_COLS",
+                                 tp.PRUNE_MIN_COLS)):
+            return None
+        pos = {u: j for j, u in enumerate(machine_uuids)}
+        cols = [pos[u] for u in uuids if u in pos]
+        if len(cols) * 32 < len(uuids) * 31:
+            # >~3% of the union's machines left the cluster: replan.
+            return None
+        mask = np.zeros(M, dtype=bool)
+        mask[np.asarray(cols, dtype=np.int64)] = True
+        if must is not None:
+            mask |= must
+        cap64 = col_cap.astype(np.int64)
+        total_supply = int(ecs_b.supply.astype(np.int64).sum())
+        if total_supply <= 0:
+            return None
+        if int(cap64[mask].sum()) < tp.PRUNE_SLACK * total_supply:
+            return None  # churn ate the union's capacity slack
+        width_cap = (M * tp.PRUNE_MAX_WIDTH_NUM
+                     // tp.PRUNE_MAX_WIDTH_DEN)
+        width = int(mask.sum())
+        if width > width_cap:
+            return None
+        target = bucket_size(width, lo=32)
+        if target > width_cap:
+            return None
+        if target > width:
+            # Pad to the shape bucket with unselected live columns,
+            # largest free capacity first.
+            free = np.nonzero(~mask)[0]
+            order = free[np.argsort(-cap64[free], kind="stable")]
+            mask[order[: target - width]] = True
+        return tp.ShortlistPlan(sel=np.nonzero(mask)[0], k=k)
 
     def _solve_plane(self, ecs_b, costs, col_cap, arc_capacity,
-                     unsched_cost, warm_state):
+                     unsched_cost, warm_state, scale=None,
+                     gang_repair=True, warm_eps_exact=False):
         """The per-plane pipeline: coarse warm start on fresh waves, the
         warm/cold dispatch with policy budgets, gang-atomicity repair.
-        Returns ``(sol, effective_costs)``; ``effective_costs`` is what
-        the final prices are optimal for."""
+        The pruned path runs the identical pipeline on a column-reduced
+        plane with ``scale`` pinned to the full instance's (``None`` —
+        the dense path — derives it per plane); ``gang_repair=False``
+        skips repair there, since the pruned path repairs only on
+        full-plane-certified solutions (``_try_pruned_band``).
+        ``warm_eps_exact`` declares the warm start's epsilon exact (an
+        escalation carry), so the dispatch skips the host-cert pass that
+        would recompute it and miss.  Returns ``(sol,
+        effective_costs)``; ``effective_costs`` is what the final prices
+        are optimal for."""
         prices, flows0, unsched0, eps_start = warm_state
-        eps_is_exact = False
+        eps_is_exact = warm_eps_exact
         if prices is None:
             # Fresh-wave coarse start: solve the machine-aggregated
             # [E, 256] instance through the same dispatch, lift its duals
@@ -848,7 +1299,7 @@ class RoundPlanner:
             hint = self.cost_model.max_cost()
             pre = coarse_precheck(
                 costs, ecs_b.supply, col_cap, arc_capacity, unsched_cost,
-                hint,
+                hint, scale=scale,
             )
             if pre is not None:
                 def counting_solve(*a, **k):
@@ -879,7 +1330,7 @@ class RoundPlanner:
                 max_iter_total=2048 if is_warm else 8192,
                 # The model's static bound pins the cost scale.
                 max_cost_hint=self.cost_model.max_cost(),
-                eps_exact=exact,
+                scale=scale, eps_exact=exact,
             )
 
         sol = run(costs, eps_start, prices, flows0, unsched0,
@@ -892,7 +1343,8 @@ class RoundPlanner:
 
         effective_costs = costs
         if (
-            self.gang_scheduling
+            gang_repair
+            and self.gang_scheduling
             and ecs_b.is_gang is not None
             and ecs_b.is_gang.any()
         ):

@@ -949,7 +949,7 @@ def coarse_group_columns(costs, groups: int) -> np.ndarray:
 
 
 def coarse_precheck(costs, supply, capacity, arc_capacity, unsched_cost,
-                    max_cost_hint, groups=None):
+                    max_cost_hint, groups=None, scale=None):
     """Size gates + greedy certificate for the coarse start.
 
     Returns ``None`` when the instance is too small/thin for a coarse
@@ -957,6 +957,11 @@ def coarse_precheck(costs, supply, capacity, arc_capacity, unsched_cost,
     the greedy+dual start (``certified`` True when that start is
     already near-optimal — the coarse start then declines in favor of
     one plain dispatch seeded with it).
+
+    ``scale`` pins the cost scale (the pruned-plane path solves reduced
+    planes at the FULL instance's scale, and every epsilon this precheck
+    certifies must be in those units); ``None`` derives it from the
+    given plane, as the dense path always has.
     """
     E, M = costs.shape
     if E == 0 or M < COARSE_MIN_MACHINES:
@@ -965,9 +970,11 @@ def coarse_precheck(costs, supply, capacity, arc_capacity, unsched_cost,
     K = coarse_group_count(m_pad, groups)
     if M < 4 * K or int(supply.sum()) < 4 * K:
         return None
-    scale, max_raw_q = derive_scale(
+    d_scale, max_raw_q = derive_scale(
         costs, unsched_cost, max_cost_hint, e_pad, m_pad
     )
+    if scale is None:
+        scale = d_scale
     gf, gleft, gprices, geps, certified = greedy_dual_precheck(
         costs, supply, capacity, arc_capacity, unsched_cost,
         max_cost_hint, e_pad, m_pad, scale,
@@ -1943,6 +1950,7 @@ def solve_transport(
             and not on_forbidden
             and cand.gap_bound != float("inf")
             and 1 < cand.eps_certified
+            and hatch_bool("POSEIDON_ADAPTIVE_LADDER")
         ):
             # Adaptive ladder entry: the rejected certificate candidate
             # already priced the start EXACTLY (its eps_certified is the
@@ -1955,7 +1963,8 @@ def solve_transport(
             # and skips the rungs the bound would burn re-proving what
             # the host just measured.  Repaired candidates are excluded:
             # their certificate describes the repaired state, not the
-            # shipped one.
+            # shipped one.  POSEIDON_ADAPTIVE_LADDER=0 restores the
+            # drift-bound entry bit-exactly.
             if eps_start is None or cand.eps_certified < eps_start:
                 eps_start = int(min(cand.eps_certified, eps0_cold))
                 eps_sched = eps_schedule(max(eps_start, 1))
@@ -2018,7 +2027,8 @@ def solve_transport(
     return sol
 
 
-def _lift_excluded_prices(pe, pm_sel, pt, sel, *, costs, capacity, scale):
+def _lift_excluded_prices(pe, pm_sel, pt, sel, *, costs, capacity, scale,
+                          min_e=None):
     """Potentials for columns excluded from a reduced solve.
 
     An excluded column carries no flow, so its potential only has to keep
@@ -2029,12 +2039,19 @@ def _lift_excluded_prices(pe, pm_sel, pt, sel, *, costs, capacity, scale):
     attractive and the full certificate flags it (-> full-solve
     fallback).  Vectorized over all M columns; the selected entries are
     then overwritten with the solver's own potentials.
+
+    ``min_e`` lets a caller that already computed the per-column
+    admissible minimum of ``C * scale + pe`` (the pruned path's
+    certificate cache refreshes from the same pass) hand it in instead
+    of paying the O(E*M) reduction twice.
     """
-    C = costs.astype(np.int64) * scale
-    cand = np.where(
-        costs < INF_COST, C + pe.astype(np.int64)[:, None], np.int64(_POS),
-    )
-    min_e = cand.min(axis=0)                      # [M]
+    if min_e is None:
+        C = costs.astype(np.int64) * scale
+        cand = np.where(
+            costs < INF_COST, C + pe.astype(np.int64)[:, None],
+            np.int64(_POS),
+        )
+        min_e = cand.min(axis=0)                  # [M]
     pm = np.maximum(min_e, pt - 1)
     pm = np.where(min_e >= _POS, pt, pm)          # no admissible arcs
     pm = np.where(capacity > 0, pm, 0)            # dead columns are inert

@@ -87,12 +87,14 @@ class FirmamentServicer:
         log.info(
             "round %d: %d tasks / %d ECs / %d machines -> "
             "%d place %d preempt %d migrate %d unsched; "
-            "solve %.3fs total %.3fs objective %d (iters %d, bf %d)",
+            "solve %.3fs total %.3fs objective %d (iters %d, bf %d; "
+            "tier %s, pruned bands %d, cost delta hits %d)",
             metrics.round_index, metrics.num_tasks, metrics.num_ecs,
             metrics.num_machines, metrics.placed, metrics.preempted,
             metrics.migrated, metrics.unscheduled, metrics.solve_seconds,
             metrics.total_seconds, metrics.objective,
-            metrics.iterations, metrics.bf_sweeps,
+            metrics.iterations, metrics.bf_sweeps, metrics.solve_tier,
+            metrics.pruned_bands, metrics.cost_delta_hits,
         )
         every = self.config.checkpoint_every_rounds
         if (

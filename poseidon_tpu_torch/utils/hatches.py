@@ -44,6 +44,10 @@ HATCHES: Tuple[Hatch, ...] = (
     Hatch("POSEIDON_HOST_CERT", "bool_on", "1",
           "Pre-dispatch host certificate: return a start that certifies "
           "exactly without launching the device solve"),
+    Hatch("POSEIDON_ADAPTIVE_LADDER", "bool_on", "1",
+          "Adaptive epsilon-ladder entry at a rejected host-cert "
+          "candidate's certified eps, plus the pruned path's escalation "
+          "warm carry"),
 
     Hatch("POSEIDON_ADAPTIVE_BF", "tristate", "",
           "Excess-decay-adaptive global-update cadence (CUDA default on)"),
@@ -56,6 +60,38 @@ HATCHES: Tuple[Hatch, ...] = (
 
     Hatch("POSEIDON_MERGE_BANDS", "tristate", "",
           "Merge compatible size bands into one solve (CUDA default on)"),
+
+    Hatch("POSEIDON_PRUNED", "bool_on", "1",
+          "Pruned-plane solve path: per-row shortlists + price-out "
+          "loop + full-plane certificate"),
+    Hatch("POSEIDON_PRUNE_MIN_ROWS", "int", "192",
+          "Classic row gate: minimum EC rows before a plane prunes"),
+    Hatch("POSEIDON_PRUNE_MIN_COLS", "int", "4096",
+          "Minimum machine columns before a plane prunes"),
+    Hatch("POSEIDON_PRUNE_WAVE", "bool_on", "1",
+          "Wave-shaped secondary prune gate (few rows x very wide); 0 "
+          "restores the classic row gate exactly"),
+    Hatch("POSEIDON_PRUNE_WAVE_MIN_ROWS", "int", "16",
+          "Wave gate: minimum EC rows"),
+    Hatch("POSEIDON_PRUNE_WAVE_MIN_COLS", "int", "8192",
+          "Wave gate: minimum machine columns"),
+    Hatch("POSEIDON_CERT_CACHE", "bool_on", "1",
+          "Reduced-plane excluded-column certificate cache fed from "
+          "the delta-plane ledger"),
+
+    Hatch("POSEIDON_COST_DELTA", "bool_on", "1",
+          "Delta-maintained cost planes (costmodel/delta.py); 0 forces "
+          "full rebuilds"),
+    Hatch("POSEIDON_COST_DELTA_MIN_CELLS", "int", "2048",
+          "Minimum E*M cells before delta maintenance pays"),
+    Hatch("POSEIDON_COST_DELTA_MIN_ROWS", "int", "8",
+          "Minimum EC rows before delta maintenance pays"),
+    Hatch("POSEIDON_PIPELINE_BANDS", "bool_on", "1",
+          "Cross-band cost-build pipelining on a worker thread (host "
+          "numpy only)"),
+    Hatch("POSEIDON_OVERLAP_ASSIGN", "bool_on", "1",
+          "Overlap finished bands' EC->task assignment with the next "
+          "band's solve (host numpy on a worker thread)"),
 )
 
 _BY_NAME = {h.name: h for h in HATCHES}

@@ -274,6 +274,61 @@ def test_kernel_matches_plain_on_card(cuda_device, impl, E, M):
         assert _kernels.LAUNCHES[k] > n0[k], k
 
 
+def _pruned_packed(E, M, seed):
+    """Packed operands of a pruned-plane solve: the shortlist of a
+    slack-rich wave-shaped [E, M] plane (``plan_shortlist`` at the wave
+    gate), solved at the full plane's pinned scale, as the planner's
+    pruned path dispatches it."""
+    from poseidon_tpu_torch.ops import transport_pruned as TP
+
+    rng = np.random.default_rng(seed)
+    costs = rng.integers(0, 1000, size=(E, M)).astype(np.int32)
+    supply = rng.integers(10, 30, size=E).astype(np.int32)
+    cap = rng.integers(1, 4, size=M).astype(np.int32)
+    unsched = rng.integers(1000, 2000, size=E).astype(np.int32)
+    arc = rng.integers(1, 6, size=(E, M)).astype(np.int32)
+    plan = TP.plan_shortlist(costs, supply, cap, arc)
+    assert plan is not None and plan.sel.size <= M // 2
+    scale, _ = T.derive_scale(costs, unsched, 8000, *T.padded_shape(E, M))
+    sel = plan.sel
+    costs_r, cap_r, arc_r = costs[:, sel], cap[sel], arc[:, sel]
+    W = sel.size
+    scale, eps_sched, _ = T._host_validate(costs_r, supply, cap_r, unsched,
+                                           scale, None, 8000)
+    # C order, as solve_transport packs it (the column gather is not).
+    big = np.ascontiguousarray(
+        np.stack([costs_r, arc_r, np.zeros_like(costs_r)]))
+    vec = np.concatenate([
+        supply, cap_r, unsched, np.zeros(E + W + 1, np.int32),
+        np.zeros(E, np.int32), eps_sched,
+        np.asarray([8192, 4, 64, 1], np.int32),
+    ]).astype(np.int32)
+    return big, vec, int(scale)
+
+
+@pytest.mark.cuda
+def test_pruned_plane_solve_matches_plain_on_card(cuda_device):
+    """A pruned-plane solve — the shortlist of a [128, 10240] plane — on
+    B2's route against the plain ladder: every output bit-equal, and B2
+    with its global update launched (the reduced width is past B1's
+    gate)."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    big, vec, scale = _pruned_packed(128, 10240, 7)
+    assert not TF.fits_vmem(*big.shape[1:])
+    n0 = {k: _kernels.LAUNCHES[k]
+          for k in ("tiled_iteration", "global_update")}
+    F, small = T._solve_device_packed(big, vec, max_iter=8192, scale=scale,
+                                      impl="tiled", device=cuda_device)
+    F0, small0 = T._solve_device_packed(big, vec, max_iter=8192,
+                                        scale=scale, impl="lax",
+                                        device=cuda_device)
+    np.testing.assert_array_equal(F.cpu().numpy(), F0.cpu().numpy())
+    np.testing.assert_array_equal(small, small0)
+    for k, n in n0.items():
+        assert _kernels.LAUNCHES[k] > n, k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,M", [(100, 10000), (128, 10240), (256, 16384),
                                  (256, 65536)])

@@ -4,11 +4,13 @@ Both servers run in this process on loopback ports (the port's on the
 CPU, through its plain torch solve); the same seeded RPC script — a
 fresh wave, churn, a node removal and a gang job — goes to both, and every
 round's SchedulingDeltas must be byte-identical and its RoundMetrics
-counts equal.  The JAX planner runs with the tiers this slice leaves out
-turned off (pruned planes, delta-maintained costs, the certificate cache,
-band pipelining), which its own tests pin placement-identical to the
-planner with every tier on.  Also: a coarse-start fresh wave at planner
-level, and ``load_reference_checkpoint``.
+counts equal.  Two runs: both packages at their defaults (every planner
+tier on — pruned planes, the certificate cache, delta-maintained costs,
+band pipelining, overlapped assignment — with the gates shrunk so the
+tiers fire at test size), and both with those tiers off.  Only the JAX
+package's convergence telemetry, which the port does not carry, is off in
+both.  Also: a coarse-start fresh wave at planner level, and
+``load_reference_checkpoint``.
 """
 
 import grpc
@@ -40,6 +42,23 @@ SLICE_HATCHES = {
 }
 COUNTS = ("placed", "unscheduled", "preempted", "migrated", "objective",
           "iterations", "bf_sweeps", "num_ecs", "num_tasks", "gap_bound")
+# The tiers-on run: only the telemetry hatch forced, the gates shrunk so
+# the wave prunes and churn rounds take the delta path at test size.
+TIER_GATES = {
+    "POSEIDON_SOLVE_TELEMETRY": "0",
+    "POSEIDON_PRUNE_MIN_ROWS": "2",
+    "POSEIDON_PRUNE_MIN_COLS": "32",
+    "POSEIDON_PRUNE_WAVE_MIN_ROWS": "2",
+    "POSEIDON_PRUNE_WAVE_MIN_COLS": "32",
+    "POSEIDON_COST_DELTA_MIN_CELLS": "1",
+    "POSEIDON_COST_DELTA_MIN_ROWS": "1",
+}
+TIER_COUNTS = COUNTS + (
+    "device_calls", "repair_firings", "solve_tier", "ladder_entry_phase",
+    "pruned_bands", "pruned_width", "pruned_price_out_rounds",
+    "pruned_escalations", "pruned_cert_accepts", "cost_delta_hits",
+    "cost_rows_rebuilt", "cost_cols_rebuilt",
+)
 
 
 @pytest.fixture()
@@ -142,15 +161,14 @@ def drive(stubs, servicer, steps):
     return rounds
 
 
-def assert_same_round(j, t):
+def assert_same_round(j, t, counts=COUNTS):
     (j_bytes, jm), (t_bytes, tm) = j, t
     assert j_bytes == t_bytes
-    for name in COUNTS:
+    for name in counts:
         assert getattr(jm, name) == getattr(tm, name), name
 
 
-def test_service_deltas_byte_identical(slice_hatches):
-    steps = rpc_script()
+def drive_both(steps):
     with JServer(JConfig(), address="127.0.0.1:0") as js, \
             FirmamentTPUServer(FirmamentTPUConfig(device="cpu"),
                                address="127.0.0.1:0") as ts:
@@ -161,6 +179,11 @@ def test_service_deltas_byte_identical(slice_hatches):
             t_rounds = drive(make_stubs(tc, FIRMAMENT_SERVICE,
                                         FIRMAMENT_METHODS),
                              ts.servicer, steps)
+    return j_rounds, t_rounds
+
+
+def test_service_deltas_byte_identical(slice_hatches):
+    j_rounds, t_rounds = drive_both(rpc_script())
     assert len(j_rounds) == len(t_rounds) == 5
     for j, t in zip(j_rounds, t_rounds):
         assert_same_round(j, t)
@@ -168,6 +191,27 @@ def test_service_deltas_byte_identical(slice_hatches):
     wave, gang = t_rounds[0][1], t_rounds[-1][1]
     assert wave.placed > 0 and wave.gap_bound == 0.0
     assert gang.num_tasks >= 24
+    assert all(m.pruned_bands == m.cost_delta_hits == 0
+               for _, m in t_rounds)
+
+
+def test_service_deltas_byte_identical_tiers_on(monkeypatch):
+    """Both packages at their default planner tiers, over a wider cluster
+    (256 machines, so a shortlist fits under half the width): the wave
+    solves on a pruned plane, churn rounds build from delta-maintained
+    planes, and every round's deltas and tier counts agree."""
+    for k, v in TIER_GATES.items():
+        monkeypatch.setenv(k, v)
+    j_rounds, t_rounds = drive_both(rpc_script(machines=256, tasks=300))
+    assert len(j_rounds) == len(t_rounds) == 5
+    for j, t in zip(j_rounds, t_rounds):
+        assert_same_round(j, t, TIER_COUNTS)
+    metrics = [m for _, m in t_rounds]
+    wave, churn = metrics[0], metrics[1:3]
+    assert wave.placed > 0 and wave.gap_bound == 0.0
+    assert wave.pruned_bands >= 1 and wave.solve_tier == "pruned"
+    assert sum(m.cost_delta_hits for m in churn) >= 1
+    assert all(m.gap_bound == 0.0 for m in metrics)
 
 
 def test_planner_coarse_wave_identical(slice_hatches):

@@ -231,3 +231,27 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.solve_transport(np.zeros((2, 2), np.int32), np.ones(2, np.int32),
                           np.ones(2, np.int32), np.ones(2, np.int32))
+
+
+def test_adaptive_ladder_hatch_matches(lax_path, monkeypatch):
+    """POSEIDON_ADAPTIVE_LADDER in both packages: on, a warm start the
+    host certificate rejects enters the ladder at its certified epsilon;
+    "0" restores the caller's drift-bound entry.  Each setting is
+    bit-equal across the packages, and the two settings differ."""
+    costs, supply, cap, unsched, arc = _instance(16, 64, 11)
+    first = J.solve_transport(costs, supply, cap, unsched, arc_capacity=arc)
+    rng = np.random.default_rng(12)
+    costs2 = np.where(
+        costs < J.INF_COST,
+        np.clip(costs + rng.integers(-40, 41, costs.shape), 0, 999),
+        costs,
+    ).astype(np.int32)
+    out = {}
+    for flag in ("1", "0"):
+        monkeypatch.setenv("POSEIDON_ADAPTIVE_LADDER", flag)
+        out[flag], _ = _both(
+            "solve_transport", costs2, supply, cap, unsched, first.prices,
+            arc_capacity=arc, init_flows=first.flows,
+            init_unsched=first.unsched, eps_start=1 << 20)
+    assert out["1"].objective == out["0"].objective
+    assert out["1"].phase_iters != out["0"].phase_iters
