@@ -14,22 +14,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    against its Python mirror;
 3. kernels: each kernel against its plain torch version on the card, at
    the main path's shapes (B1 also at its gate's two extremes, B2 also at
-   a ragged shape and on a pruned plane's shortlist), with exact (zero) tolerance, and timed; B1 beside its
-   previous design's time and its one-SM floor (its bound's bytes at the
-   rate one SM reads L2, measured by a probe kernel, or its operations at
-   one SM's share of the int32 rate); B2 with the CUDA kernels it
+   a ragged shape and on a pruned plane's shortlist), with exact (zero)
+   tolerance, the convergence-telemetry ring included (B1's ring and B2's
+   route's, held against the plain ladder's ring, and each route's
+   results with the ring equal to its results without it, with the same
+   host reads), and timed with the ring on and off; B1 beside its
+   previous design's time and its one-SM floor (its plane passes' bytes
+   at the rate one SM reads L2, measured by a probe kernel, or its
+   operations at one SM's share of the int32 rate) and its bound counted
+   from each input read once; B2 with the CUDA kernels it
    launches per iteration (at most 3); the global update on mid-solve
    states covering its three exits and both launch plans (length tiles
-   in shared memory, length planes in the workspace), with no host read
-   and its bound counted from each input read once;
+   in shared memory, length planes in the workspace), with no host read,
+   its ring marks equal to the plain update's, and its bound counted from
+   each input read once;
 4. main path: the port's gRPC server answers ``Schedule()`` for a
    10,000-machine / 100,000-pod cluster (one fresh wave, three churn
-   rounds) with the planner tiers at their defaults (pruned planes with
-   the certificate cache, delta-maintained cost planes, cross-band
-   pipelining, overlapped assignment); every round must certify and logs
-   its tier counts, each device solve's route and padded shape, and its
-   stage split; the same script with the plain versions forced must
-   produce byte-identical deltas; then the dense path (the tiers off:
+   rounds) with the planner tiers and the convergence telemetry at their
+   defaults (pruned planes with the certificate cache, delta-maintained
+   cost planes, cross-band pipelining, overlapped assignment; the ring
+   on); every round must certify and logs its tier and telemetry counts,
+   each device solve's route and padded shape, and its stage split; the
+   same script with the plain versions forced must produce
+   byte-identical deltas and equal telemetry counts; one more fresh wave
+   with the telemetry off must produce the same deltas and host reads,
+   and its device time is printed beside the telemetry-on wave's; then
+   the dense path (the tiers off:
    the wave and one churn round) with the kernels, whose wave must match
    the main path's objective and placed count (plus a contended wave if
    no path reached the per-iteration kernel).  Each path's kernel
@@ -47,7 +57,8 @@ record and ``{"ok": true, "device": {...}}``.  ``--compare N`` prints,
 as JSON lines, one B2 iteration's device time at each B2 kernel case and
 then the per-iteration route's split of each of N fresh-wave drives (no
 churn, no plain run); run in two trees in turn, it compares them in one
-call.
+call.  ``--compare N ring`` turns the telemetry ring on and off between
+the drives (on, off, off, on, ...).
 """
 
 from __future__ import annotations
@@ -81,6 +92,11 @@ TIER_FIELDS = ("solve_tier", "pruned_bands", "pruned_width",
                "pruned_cert_accepts", "cost_delta_hits",
                "cost_rows_rebuilt", "cost_cols_rebuilt",
                "pipeline_overlap_s")
+# The convergence-telemetry roll-up of each round (RoundMetrics).
+TELEM_FIELDS = ("telem_samples", "telem_gu_firings", "telem_decay_half_life",
+                "telem_iters_to_90")
+# The ring's capacity in the kernel cases: the default, as on the main path.
+RING_CAP = 512
 # Peak rates for the lower bound on a kernel's time (H100 SXM data sheet).
 # HBM bytes/s; and the int32 rate: the sheet's 67 TFLOP/s fp32 counts an
 # FMA as two operations on 128 fp32 lanes per SM, and an SM has 64 int32
@@ -283,13 +299,45 @@ def _pack(costs, supply, cap, unsched, arc, *, flows=None, prices=None,
     return big, vec, int(scale)
 
 
-def _run_route(big, vec, scale, impl):
+def _run_route(big, vec, scale, impl, telem_cap=RING_CAP):
     from poseidon_tpu_torch.ops import transport as T
 
     F, small = T._solve_device_packed(
         big, vec, max_iter=8192, scale=scale, impl=impl, device=DEVICE,
+        telem_cap=telem_cap,
     )
     return F.cpu().numpy(), small
+
+
+def _ring_checks(label, big, vec, scale, impl):
+    """A route with the telemetry ring against the plain ladder with it
+    (flows and the whole small result, the ring included), and against
+    itself without it (same flows, the same small result minus the ring,
+    the same host reads).  Returns (max_abs_err, the route's solve ms
+    with the ring on and off, timed in turns: off, on, on, off), and
+    fails on any difference."""
+    from poseidon_tpu_torch.ops import transport as T
+
+    r0 = T.host_read_count()
+    Fk, sk = _run_route(big, vec, scale, impl)
+    reads_on = T.host_read_count() - r0
+    Fp, sp = _run_route(big, vec, scale, "lax")
+    r0 = T.host_read_count()
+    Fo, so = _run_route(big, vec, scale, impl, telem_cap=0)
+    reads_off = T.host_read_count() - r0
+    err = _max_err([Fk, sk], [Fp, sp])
+    err_onoff = _max_err([Fk, sk[:so.size]], [Fo, so])
+    if sk.size != so.size + 8 * RING_CAP:
+        fail(f"{impl} {label}: the small result holds no ring")
+    if err_onoff != 0:
+        fail(f"{impl} {label}: results differ with the ring on and off")
+    if reads_on != reads_off:
+        fail(f"{impl} {label}: {reads_on} host reads with the ring, "
+             f"{reads_off} without")
+    times = [_time_cuda(lambda c=c: _run_route(big, vec, scale, impl, c), 3)
+             for c in (0, RING_CAP, RING_CAP, 0)]
+    return (err, (times[1] + times[2]) / 2, (times[0] + times[3]) / 2,
+            reads_on, Fk, sk)
 
 
 def _time_cuda(fn, reps):
@@ -348,36 +396,45 @@ def _max_err(a_list, b_list) -> int:
 def check_fused(cases, l2_rate) -> list:
     """B1 against the plain ladder: whole-solve outputs at each shape,
     timed beside the previous design's time and the one-SM floor (the
-    bound's bytes at ``l2_rate``, or its operations at one SM's share of
-    the card's int32 rate, whichever is longer)."""
+    plane passes' bytes at ``l2_rate``, or the operations at one SM's
+    share of the card's int32 rate, whichever is longer).  The bound
+    counts each input read once and each output written once."""
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     rows = []
     for label, big, vec, scale in cases:
-        Fk, sk = _run_route(big, vec, scale, "fused")
-        Fp, sp = _run_route(big, vec, scale, "lax")
-        err = _max_err([Fk, sk], [Fp, sp])
+        err, ms, ms_off, reads, Fk, sk = _ring_checks(label, big, vec,
+                                                      scale, "fused")
         E, M = big.shape[1:]
         o = E + E + M + 1
         iters, bf = int(sk[o]), int(sk[o + 1])
-        ms = _time_cuda(lambda: _run_route(big, vec, scale, "fused"), 3)
         plain_ms = _time_cuda(lambda: _run_route(big, vec, scale, "lax"), 1)
-        # Bytes: C, Uem and F read and F written in every push/relabel
-        # iteration, C, Uem and F read in every Bellman-Ford sweep, for the
-        # iterations and sweeps this solve ran.
-        nbytes = 4 * E * M * (4 * iters + 3 * bf)
+        # Bytes of the bound: each input read once (C, Uem and F; U,
+        # supply, Ffb and pe; cap, Fmt and pm; pt and the 10 knobs), each
+        # output written once (F; Ffb and pe; Fmt and pm; pt, the stats
+        # and the ring).  The later passes re-read the planes from L2 and
+        # the workspace is the kernel's own.
+        nbytes = 4 * (4 * E * M + 6 * E + 5 * M + 12 + 3 + NUM_PHASES
+                      + 8 * RING_CAP)
         ops = E * M * (OPS_PER_CELL_ITER * iters + OPS_PER_CELL_BF * bf
                        + OPS_PER_CELL_PHASE * NUM_PHASES)
-        # One SM's floor: the bound's bytes at the rate one SM reads L2,
-        # or its operations at one SM's share of the int32 rate.
-        floor_bytes = nbytes / l2_rate * 1e3
+        # One SM's floor: the plane passes' bytes (C, Uem and F read and F
+        # written in every push/relabel iteration, C, Uem and F read in
+        # every Bellman-Ford sweep) at the rate one SM reads L2, or the
+        # operations at one SM's share of the int32 rate.
+        pass_bytes = 4 * E * M * (4 * iters + 3 * bf)
+        floor_bytes = pass_bytes / l2_rate * 1e3
         floor_ops = ops / (INT32_OPS_PER_S / sms) * 1e3
         floor_ms = max(floor_bytes, floor_ops)
         prev = PREVIOUS_B1_MS.get(label)
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
-                         bf=bf, ms=ms, plain_ms=plain_ms,
-                         bytes=nbytes, ops=ops, one_sm_floor_ms=floor_ms))
-        log(f"  B1 {label} [{E}, {M}]: max_abs_err {err}, iters {iters}, "
-            f"bf {bf}, clean {int(sk[o + 2])}; kernel {ms:.3f} ms "
+                         bf=bf, ms=ms, ms_ring_off=ms_off, plain_ms=plain_ms,
+                         bytes=nbytes, ops=ops, one_sm_floor_ms=floor_ms,
+                         host_reads=reads))
+        log(f"  B1 {label} [{E}, {M}]: max_abs_err {err} (ring included), "
+            f"iters {iters}, bf {bf}, clean {int(sk[o + 2])}; kernel "
+            f"{ms:.3f} ms with the ring, {ms_off:.3f} ms without "
+            f"({(ms - ms_off) / ms_off * 100:+.2f}%), {reads} host reads "
+            "either way; "
             f"(previous design, recorded, not this run: "
             f"{'none' if prev is None else f'{prev:.3f} ms'}), "
             f"plain {plain_ms:.3f} ms, one-SM floor {floor_ms:.3f} ms "
@@ -432,12 +489,18 @@ def _b2_start(big, vec, scale):
 B2_REPS = 20
 
 
-def _time_b2(step, ops, args, eps):
+def _time_b2(step, ops, args, eps, ring=None):
     """One B2 iteration (with the relabel) through ``step``, called
-    ``B2_REPS`` times after one warm-up call as one object is in a solve:
-    device ms and host enqueue ms per call (``_time_device``)."""
+    ``B2_REPS`` times after one warm-up call as one object is in a solve,
+    writing its telemetry sample into ``ring`` when given: device ms and
+    host enqueue ms per call (``_time_device``)."""
     return _time_device(
-        lambda: step(*args, eps=eps, do_relabel=True, **ops), B2_REPS)
+        lambda: step(*args, eps=eps, do_relabel=True, ring=ring, **ops),
+        B2_REPS)
+
+
+def _ring():
+    return torch.zeros((8, RING_CAP), dtype=torch.int32, device=DEVICE)
 
 
 def check_tiled(cases) -> list:
@@ -452,34 +515,50 @@ def check_tiled(cases) -> list:
 
     rows = []
     for label, big, vec, scale in cases:
-        Fk, sk = _run_route(big, vec, scale, "tiled")
-        Fp, sp = _run_route(big, vec, scale, "lax")
-        err = _max_err([Fk, sk], [Fp, sp])
+        err, solve_ms, solve_ms_off, reads, Fk, sk = _ring_checks(
+            label, big, vec, scale, "tiled")
         E, M = big.shape[1:]
         o = E + E + M + 1
         iters, bf = int(sk[o]), int(sk[o + 1])
         ops, args, eps = _b2_start(big, vec, scale)
         for relabel in (True, False):
-            a = TiledIteration()(*args, eps=eps, do_relabel=relabel, **ops)
-            b = T._pr_iteration(*args, eps=eps, do_relabel=relabel, **ops)
-            err = max(err, _max_err([t.cpu().numpy() for t in a],
-                                    [t.cpu().numpy() for t in b]))
+            rk, rp = _ring(), _ring()
+            a = TiledIteration()(*args, eps=eps, do_relabel=relabel,
+                                 ring=rk, ring_base=3, **ops)
+            b = T._pr_iteration(*args, eps=eps, do_relabel=relabel,
+                                ring=rp, ring_base=3, **ops)
+            err = max(err, _max_err([t.cpu().numpy() for t in (*a, rk)],
+                                    [t.cpu().numpy() for t in (*b, rp)]))
+            if bool(rk.any()) != bool(int(args[-1][0])):
+                fail(f"B2 {label}: the iteration's ring sample does not "
+                     "follow its entering status")
         k0 = _b2_kernel_count()
-        ms, host_ms = _time_b2(TiledIteration(), ops, args, eps)
+        # Ring off, on, on, off.
+        t_off_a = _time_b2(TiledIteration(), ops, args, eps)
+        t_on_a = _time_b2(TiledIteration(), ops, args, eps, _ring())
+        t_on_b = _time_b2(TiledIteration(), ops, args, eps, _ring())
+        t_off_b = _time_b2(TiledIteration(), ops, args, eps)
+        ms, host_ms = ((t_on_a[0] + t_on_b[0]) / 2,
+                       (t_on_a[1] + t_on_b[1]) / 2)
+        ms_off = (t_off_a[0] + t_off_b[0]) / 2
         per_iter = (None if k0 is None
-                    else (_b2_kernel_count() - k0) / (B2_REPS + 1))
+                    else (_b2_kernel_count() - k0) / (4 * (B2_REPS + 1)))
         plain_ms = _time_cuda(lambda: T._pr_iteration(
-            *args, eps=eps, do_relabel=True, **ops), 20)
+            *args, eps=eps, do_relabel=True, ring=_ring(), **ops), 20)
         nbytes = 4 * 4 * E * M  # C, Uem, F read once; F written once
         ops_n = OPS_PER_CELL_ITER * E * M
         rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
-                         bf=bf, ms=ms, plain_ms=plain_ms, host_ms=host_ms,
-                         kernels_per_iteration=per_iter, bytes=nbytes,
-                         ops=ops_n))
-        log(f"  B2 {label} [{E}, {M}]: max_abs_err {err}, solve iters "
-            f"{iters}, bf {bf}, clean {int(sk[o + 2])}; one iteration: "
-            f"kernel {ms:.4f} ms on the device ({host_ms:.4f} ms host "
-            f"enqueue, {per_iter} CUDA kernels), plain {plain_ms:.4f} ms")
+                         bf=bf, ms=ms, ms_ring_off=ms_off, plain_ms=plain_ms,
+                         host_ms=host_ms, kernels_per_iteration=per_iter,
+                         solve_ms=solve_ms, solve_ms_ring_off=solve_ms_off,
+                         host_reads=reads, bytes=nbytes, ops=ops_n))
+        log(f"  B2 {label} [{E}, {M}]: max_abs_err {err} (ring included), "
+            f"solve iters {iters}, bf {bf}, clean {int(sk[o + 2])}; one "
+            f"iteration: kernel {ms:.4f} ms on the device with the ring, "
+            f"{ms_off:.4f} ms without ({host_ms:.4f} ms host enqueue, "
+            f"{per_iter} CUDA kernels), plain {plain_ms:.4f} ms; the "
+            f"route's solve {solve_ms:.3f} ms with the ring, "
+            f"{solve_ms_off:.3f} ms without, {reads} host reads either way")
         if err != 0:
             fail(f"B2 differs from its plain version at {label}")
         if not int(sk[o + 2]):
@@ -541,14 +620,18 @@ def check_global_update(cases) -> list:
                 args = (*s, *exc)
                 acc_k = torch.zeros(1, dtype=torch.int32, device=DEVICE)
                 acc_p = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+                ring_k, ring_p = _ring(), _ring()
                 step = GlobalUpdate()
                 reads0 = T.host_read_count()
-                out_k = step(*args, acc_k, eps=eps, bf_max=bf_max, **gu_ops)
+                out_k = step(*args, acc_k, eps=eps, bf_max=bf_max,
+                             ring=ring_k, ring_slot=9, **gu_ops)
                 reads = T.host_read_count() - reads0
                 out_p = T._global_update(*args, acc_p, eps=eps,
-                                         bf_max=bf_max, **gu_ops)
-                err = _max_err([t.cpu().numpy() for t in (*out_k, acc_k)],
-                               [t.cpu().numpy() for t in (*out_p, acc_p)])
+                                         bf_max=bf_max, ring=ring_p,
+                                         ring_slot=9, **gu_ops)
+                err = _max_err(
+                    [t.cpu().numpy() for t in (*out_k, acc_k, ring_k)],
+                    [t.cpu().numpy() for t in (*out_p, acc_p, ring_p)])
                 sweeps = int(acc_p.cpu()[0])
                 applied = any(bool((a != b).any())
                               for a, b in zip(out_p, s[3:6]))
@@ -567,7 +650,8 @@ def check_global_update(cases) -> list:
                     kind = "ambiguous"
                 acc_t = torch.zeros(1, dtype=torch.int32, device=DEVICE)
                 ms, host_ms = _time_device(lambda: step(
-                    *args, acc_t, eps=eps, bf_max=bf_max, **gu_ops), 10)
+                    *args, acc_t, eps=eps, bf_max=bf_max, ring=ring_k,
+                    ring_slot=9, **gu_ops), 10)
                 plain_ms = _time_cuda(lambda: T._global_update(
                     *args, acc_t, eps=eps, bf_max=bf_max, **gu_ops), 2)
                 # Bytes: each input read once (C, Uem and F; U, supply,
@@ -942,6 +1026,7 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
                         for k, n in sorted(T._Telemetry.routes.items())
                         if n > routes0.get(k, 0)},
                 tiers={f: getattr(m, f) for f in TIER_FIELDS},
+                telem={f: getattr(m, f) for f in TELEM_FIELDS},
                 stages={k: v[0] for k, v in stagetimer.snapshot().items()},
                 split=route_split(*split0),
                 b2_kernels=None if k0 is None else k1 - k0,
@@ -955,6 +1040,7 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
                 f"{m.gap_bound}, solves by route [E_pad, M_pad] "
                 f"{rec['routes']}")
             log(f"    tiers: {json.dumps(rec['tiers'])}")
+            log(f"    telemetry: {json.dumps(rec['telem'])}")
             log("    stages (s): " + ", ".join(
                 f"{k} {v:.4f}" for k, v in sorted(
                     rec["stages"].items(), key=lambda kv: -kv[1])))
@@ -972,6 +1058,14 @@ def _set_plain(plain: bool) -> None:
             os.environ[k] = "0"
         else:
             os.environ.pop(k, None)
+
+
+def _set_telemetry(on: bool) -> None:
+    """The convergence-telemetry ring at its default (on), or off."""
+    if on:
+        os.environ.pop("POSEIDON_SOLVE_TELEMETRY", None)
+    else:
+        os.environ["POSEIDON_SOLVE_TELEMETRY"] = "0"
 
 
 def _set_tiers(on: bool) -> None:
@@ -1008,10 +1102,12 @@ def _check_path(name, rounds) -> None:
 def main_path(capture):
     """The main path — the planner tiers at their defaults — with the
     kernels, then again with the plain versions forced (the deltas must
-    match byte for byte); then the dense path, the tiers off, with the
-    kernels.  Where the paths' waves never reached the per-iteration
-    kernel, a contended wave stands in for it.  ``capture`` receives the
-    main path's wave solves (see ``drive``)."""
+    match byte for byte, and the telemetry counts); its wave again with
+    the telemetry off (the same deltas and host reads; ``ring_cost``
+    holds the two waves' device and wall seconds); then the dense path,
+    the tiers off, with the kernels.  Where the paths' waves never
+    reached the per-iteration kernel, a contended wave stands in for it.
+    ``capture`` receives the main path's wave solves (see ``drive``)."""
     from poseidon_tpu_torch.utils import stagetimer
 
     nodes, tasks = _population()
@@ -1033,9 +1129,47 @@ def main_path(capture):
         if a["deltas"] != b["deltas"]:
             fail(f"[tiers-on] {a['kind']}: deltas differ between the "
                  "kernel and plain runs")
-    log(f"  [tiers-on] deltas byte-identical to the plain run over "
-        f"{len(kern)} rounds")
+        if a["telem"] != b["telem"]:
+            fail(f"[tiers-on] {a['kind']}: telemetry counts differ between "
+                 f"the kernel and plain runs: {a['telem']} vs {b['telem']}")
+    if not kern[0]["telem"]["telem_samples"]:
+        fail("[tiers-on] the wave captured no telemetry sample")
+    log(f"  [tiers-on] deltas byte-identical and telemetry counts equal to "
+        f"the plain run over {len(kern)} rounds")
     results["tiers_on"] = kern
+
+    _set_telemetry(False)
+    log("main path (tiers on): wave, kernels, telemetry off")
+    stagetimer.set_device_timing(True)
+    off = drive("telemetry-off", ckpt, tasks, 0)
+    stagetimer.set_device_timing(False)
+    _set_telemetry(True)
+    _check_path("telemetry-off", off)
+    w_on, w_off = kern[0], off[0]
+    if w_on["deltas"] != w_off["deltas"]:
+        fail("the wave's deltas differ with the telemetry on and off")
+    if w_on["host_reads"] != w_off["host_reads"]:
+        fail(f"the wave made {w_on['host_reads']} host reads with the "
+             f"telemetry on, {w_off['host_reads']} with it off")
+    if any(w_off["telem"].values()):
+        fail(f"the telemetry-off wave reported {w_off['telem']}")
+
+    def device_s(rec, stage):
+        return rec["split"]["stages"][stage]["device_s"]
+
+    ring_cost = {
+        "solve.device_s": [w_on["stages"].get("solve.device", 0.0),
+                           w_off["stages"].get("solve.device", 0.0)],
+        "b2_route_device_s": [device_s(w_on, "solve.device.tiled"),
+                              device_s(w_off, "solve.device.tiled")],
+        "b1_route_device_s": [device_s(w_on, "solve.device.fused"),
+                              device_s(w_off, "solve.device.fused")],
+        "wall_s": [w_on["wall_s"], w_off["wall_s"]],
+        "host_reads": [w_on["host_reads"], w_off["host_reads"]],
+    }
+    log("  the wave with the telemetry on / off (same deltas): "
+        + json.dumps(ring_cost))
+    results["telemetry_off"] = off
 
     _set_tiers(False)
     log("dense path (tiers off): wave, kernels")
@@ -1088,7 +1222,7 @@ def main_path(capture):
         fail(f"the wave's global updates made {gu_reads} host reads")
     if per_iter is not None and per_iter > 3:
         fail(f"B2 launched {per_iter} CUDA kernels per iteration")
-    return results, launches
+    return results, launches, ring_cost
 
 
 def main_path_cases(capture):
@@ -1108,7 +1242,10 @@ def main_path_cases(capture):
 def kernels_record(fused, tiled, gu, launches):
     """The kernels line.  ``launches`` is ``{path: {kernel: n}}``, each
     path's count read just after its own drive; a row's ``launches`` is
-    their sum over the paths, ``launches_by_path`` the split."""
+    their sum over the paths, ``launches_by_path`` the split.  Every
+    kernel carries the convergence-telemetry ring (B1 and B2 write the
+    samples, the global update its fired bit and sweeps); ``ms`` is with
+    the ring, ``ms_ring_off`` without it, where timed."""
     def row(name, source, replaces, unit, cases, n):
         lead = cases[0]
         bound_bytes = lead["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1121,14 +1258,18 @@ def kernels_record(fused, tiled, gu, launches):
             "launch_unit": unit,
             "max_abs_err": max(c["err"] for c in cases),
             "equal": all(c["err"] == 0 for c in cases),
-            "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+            "telemetry_ring": True,
+            "ms": lead["ms"], "ms_ring_off": lead.get("ms_ring_off"),
+            "plain_ms": lead["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None,
             "cases": [{k: c[k] for k in ("label", "shape", "err", "ms",
-                                         "plain_ms", "one_sm_floor_ms",
-                                         "host_ms", "kernels_per_iteration",
-                                         "sweeps", "plan")
+                                         "ms_ring_off", "plain_ms",
+                                         "one_sm_floor_ms", "host_ms",
+                                         "kernels_per_iteration", "sweeps",
+                                         "plan", "solve_ms",
+                                         "solve_ms_ring_off", "host_reads")
                        if k in c}
                       | {"bound_ms": max(c["bytes"] / HBM_BYTES_PER_S,
                                          c["ops"] / INT32_OPS_PER_S) * 1e3}
@@ -1155,11 +1296,13 @@ def kernels_record(fused, tiled, gu, launches):
 
 # --------------------------------------------------------------- main
 
-def compare(runs: int) -> int:
+def compare(runs: int, ring_turns: bool = False) -> int:
     """``--compare N``: one B2 iteration's device time at each B2 kernel
     case (``_time_b2``), then N fresh-wave drives with the kernels (no
     churn, no plain run), each printed as a JSON line with B2's route
-    split; run in two trees in turn to compare them in one call."""
+    split; run in two trees in turn to compare them in one call.
+    ``--compare N ring`` turns the telemetry ring on and off between the
+    drives (on, off, off, on, ...), to compare the two in one process."""
     from poseidon_tpu_torch.ops.transport_tiled import TiledIteration
     from poseidon_tpu_torch.utils import stagetimer
 
@@ -1181,22 +1324,26 @@ def compare(runs: int) -> int:
     stagetimer.set_device_timing(True)
     nodes, tasks = _population()
     ckpt = load_cluster("population", nodes, tasks)
-    for _ in range(runs):
+    for i in range(runs):
+        ring = not ring_turns or i % 4 in (0, 3)
+        _set_telemetry(ring)
         rec = drive("wave", ckpt, tasks, 0)[0]
         print(json.dumps({"route_split": rec["split"],
-                          "wall_s": rec["wall_s"], "smi": info["smi"]}),
-              flush=True)
+                          "solve_device_s": rec["stages"].get("solve.device"),
+                          "telemetry": ring, "wall_s": rec["wall_s"],
+                          "smi": info["smi"]}), flush=True)
+    _set_telemetry(True)
     return 0
 
 
 def main(argv) -> int:
     if argv[:1] == ["--compare"]:
-        return compare(int(argv[1]))
+        return compare(int(argv[1]), argv[2:3] == ["ring"])
     info = device_info()
     build_kernels()
     fused, tiled, gu, l2_rate = kernel_phase()
     capture = []
-    results, launches = main_path(capture)
+    results, launches, ring_cost = main_path(capture)
     # The kernels at the main path's own wave shapes (after the path's
     # launches were read, so these comparisons are not counted).
     cases = main_path_cases(capture)
@@ -1212,6 +1359,15 @@ def main(argv) -> int:
     wave = results["tiers_on"]
     if wave[0]["placed"] <= 0:
         fail("the fresh wave placed nothing")
+    # What the ring costs, as measured in this run.
+    cost = {"card": info["smi"], "wave_on_off": ring_cost}
+    for name, rows in (("b1", fused), ("b2_iteration", tiled)):
+        cost[name] = {f"{r['label']} {r['shape']}": [r["ms"], r["ms_ring_off"]]
+                      for r in rows}
+    cost["b2_route_solve"] = {f"{r['label']} {r['shape']}":
+                              [r["solve_ms"], r["solve_ms_ring_off"]]
+                              for r in tiled}
+    log("ring cost, ms or s with the ring on / off: " + json.dumps(cost))
     print(info["smi"], flush=True)
     print(json.dumps(kernels_record(fused, tiled, gu, launches)),
           flush=True)

@@ -128,6 +128,17 @@ class RoundMetrics:
     ladder_entry_phase: int = 0
     # Per-epsilon-phase iteration split summed across band solves.
     solve_phase_iters: list = field(default_factory=list)
+    # Convergence-telemetry roll-up (POSEIDON_SOLVE_TELEMETRY;
+    # ops/transport.SolveTelemetry): ring samples captured across the
+    # round's band solves, global-update firings in them, and, from the
+    # dominant band's curve (the one with the most samples), the
+    # active-excess decay half-life and the iterations until 90% of the
+    # initial active excess had drained.  All zero when telemetry is off
+    # or nothing solved on the device.
+    telem_samples: int = 0
+    telem_gu_firings: int = 0
+    telem_decay_half_life: float = 0.0
+    telem_iters_to_90: int = 0
     # The worst band's tier: "pruned" (shortlist + full-plane
     # certificate), "dense", "host_greedy" (uncertified last resort),
     # or "quiet"/"none" for skipped/degenerate rounds.
@@ -366,6 +377,10 @@ class RoundPlanner:
         self._cost_cols_rebuilt = 0
         self._pipeline_overlap = 0.0
         self._tier_rank = -1
+        # Per-band convergence curves ((band, SolveTelemetry) pairs)
+        # collected this round, and their JSON-safe digests.
+        self._telem_curves: list = []
+        self.last_solve_curves: list = []
 
     def set_cost_model(self, cost_model) -> None:
         """Swap the cost model before a drive's first round.  Rebuilds the
@@ -465,6 +480,9 @@ class RoundPlanner:
     def _schedule_round(self) -> Tuple[List[Delta], RoundMetrics]:
         t0 = time.perf_counter()
         st = self.state
+        # Rounds that never reach _solve_banded carry no convergence
+        # curves: a previous round's must not pass for theirs.
+        self.last_solve_curves = []
 
         # Quiet-round fast path: no mutation since the last committed
         # result and nothing left unscheduled => the previous optimum
@@ -821,6 +839,7 @@ class RoundPlanner:
         self._cost_cols_rebuilt = 0
         self._pipeline_overlap = 0.0
         self._tier_rank = -1
+        self._telem_curves = []
         entry_min = -1
         phase_sums = None
         remaining = sorted(set(bands.tolist()))
@@ -883,6 +902,7 @@ class RoundPlanner:
                 self._pipeline_overlap += pipe.overlap_with(
                     t_band, time.perf_counter()
                 )
+            self._note_solve_telemetry(band, sol)
             objective += sol.objective
             gap = max(gap, sol.gap_bound)
             iters += sol.iterations
@@ -928,7 +948,34 @@ class RoundPlanner:
             metrics.solve_phase_iters = list(phase_sums)
         if self._tier_rank >= 0:
             metrics.solve_tier = self._TIERS[self._tier_rank]
+        self._fold_telemetry(metrics)
         return flows_full
+
+    def _note_solve_telemetry(self, band, sol) -> None:
+        """Collect one band solve's convergence curve, when the telemetry
+        ring captured one."""
+        t = sol.telemetry
+        if t is None or t.samples() == 0:
+            return
+        self._telem_curves.append((int(band), t))
+
+    def _fold_telemetry(self, metrics: RoundMetrics) -> None:
+        """Roll the collected curves into the RoundMetrics scalars and
+        keep their JSON-safe digests in ``last_solve_curves``."""
+        self.last_solve_curves = [
+            dict(band=b, **t.digest()) for b, t in self._telem_curves
+        ]
+        if not self._telem_curves:
+            return
+        # Half-life and drain come from the dominant curve: the band with
+        # the most captured iterations carries the round's device work.
+        dominant = max(self._telem_curves, key=lambda bt: bt[1].samples())
+        metrics.telem_samples = sum(
+            t.samples() for _, t in self._telem_curves)
+        metrics.telem_gu_firings = sum(
+            t.gu_firings() for _, t in self._telem_curves)
+        metrics.telem_decay_half_life = dominant[1].decay_half_life()
+        metrics.telem_iters_to_90 = dominant[1].iters_to_drain(0.9)
 
     def _maybe_pipeline(self, n_bands: int):
         """The cross-band pipeline, when it can pay: more than one band
@@ -1291,7 +1338,7 @@ class RoundPlanner:
         are optimal for."""
         prices, flows0, unsched0, eps_start = warm_state
         eps_is_exact = warm_eps_exact
-        if prices is None:
+        if prices is None and hatch_bool("POSEIDON_COARSE"):
             # Fresh-wave coarse start: solve the machine-aggregated
             # [E, 256] instance through the same dispatch, lift its duals
             # and primal, and start the ladder at the lift's certified

@@ -116,17 +116,18 @@ def lib() -> SimpleNamespace:
                 fn.argtypes, fn.restype = argtypes, restype
                 fns[name] = fn
 
-            bind("fused_ladder.cu", "pt_fused_ladder", [P] * 14 + [I, I, P], I)
+            bind("fused_ladder.cu", "pt_fused_ladder",
+                 [P] * 15 + [I] * 3 + [P], I)
             bind("fused_ladder.cu", "pt_fused_ladder_smem_bytes", [I],
                  ctypes.c_size_t)
             bind("tiled_iteration.cu", "pt_tiled_iteration",
-                 [P] * 26 + [I] * 5 + [P], I)
+                 [P] * 27 + [I] * 7 + [P], I)
             bind("tiled_iteration.cu", "pt_tiled_iteration_ws_ints", [I, I],
                  LL)
             bind("tiled_iteration.cu", "pt_tiled_iteration_kernels", [],
                  ctypes.c_ulonglong)
             bind("global_update.cu", "pt_global_update_launch",
-                 [P] * 19 + [I] * 6 + [P], I)
+                 [P] * 20 + [I] * 8 + [P], I)
             bind("global_update.cu", "pt_global_update_ws_ints", [I, I, I],
                  LL)
             bind("global_update.cu", "pt_global_update_plan", [I, I, P], I)

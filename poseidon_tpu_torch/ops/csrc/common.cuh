@@ -16,6 +16,11 @@
 #define PT_NUM_PHASES 4
 #define PT_FULL 0xffffffffu
 
+// Rows of the convergence-telemetry ring, [8, cap] int32 (ops/transport.py,
+// _TR_*), and entries of the phase loop's status (_ST_*).
+enum { kTrIter, kTrExcess, kTrRows, kTrCols, kTrEps, kTrGu, kTrBf, kTrSat };
+enum { kStActive, kStExcess, kStIters, kStRows, kStCols, kStSat };
+
 // Floor division for b > 0 (jnp.floor_divide / torch rounding_mode="floor").
 __device__ __forceinline__ int pt_floordiv(int a, int b) {
   int q = a / b;

@@ -67,6 +67,17 @@
 //   at launch (ladder_smem_bytes, mirrored in ops/transport_fused.py).
 // - Back-to-back block reductions are fused into one reduction of a small
 //   struct (each reduction costs four barriers).
+// - The convergence-telemetry ring (the reference kernel's telem_cap
+//   output) is an optional global [8, cap] int32 buffer, apart from the
+//   workspace.  The entering-state reduction counts the rows and columns
+//   with positive excess in the one int that held its OR (rows in the low
+//   16 bits, columns in the high 15: E < 2^16 and M < 2^15 inside the
+//   gate, checked at launch), so it holds no more registers than before;
+//   thread 0 parks the sample's values in shared memory, so none stays
+//   live in registers across the push sweep and the update, and writes
+//   the iteration's sample after the update or the local relabel.
+//   Nothing in the kernel reads the ring; with a null ring pointer no
+//   store is made.
 
 #include <cstddef>
 
@@ -106,7 +117,8 @@ struct Planes {
   int* dm0;        // [M]
   int* dm1;
   int* part;       // [4][kThreads] column-stage partials (shared memory)
-  int E, M;
+  int* ring;       // [8, ring_cap] telemetry samples, or null
+  int E, M, ring_cap;
 };
 
 // Block scalars and the block-reduction scratch (32 slots of up to 16
@@ -117,6 +129,8 @@ struct Shared {
   int exc_t;
   int hadm_t;  // sink relabel inputs of the current iteration
   int cand_t;
+  // The telemetry sample of the current iteration (_TR_* order).
+  int tel[8];
 };
 
 // Dynamic shared memory: Shared | part | pe[E] | de0[E] | de1[E].
@@ -134,14 +148,18 @@ __device__ __forceinline__ T* scratch(Shared& s) {
   return reinterpret_cast<T*>(s.red);
 }
 
-// Fused reductions: the entering state of an iteration, the sink's relabel
-// inputs, and one Bellman-Ford sweep's sink distance with the change flag.
-struct Enter { long long pos; int any; };
+// Fused reductions: the entering state of an iteration (its positive
+// excess, and the rows and columns that carry it packed in one int: rows
+// in bits 0-15, columns from bit 16), the sink's relabel inputs, and one
+// Bellman-Ford sweep's sink distance with the change flag.
+struct Enter { long long pos; int cnt; };
 struct EnterOp {
   __device__ Enter operator()(Enter a, Enter b) const {
-    return {a.pos + b.pos, a.any | b.any};
+    return {a.pos + b.pos, a.cnt + b.cnt};
   }
 };
+constexpr int kColUnit = 1 << 16;
+
 struct Sink { int sum, hadm, cand; };
 struct SinkOp {
   __device__ Sink operator()(Sink a, Sink b) const {
@@ -757,28 +775,48 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
       for (int e = threadIdx.x; e < E; e += kThreads) {
         int x = p.exc_e[e];
         en.pos += max(x, 0);
-        en.any |= x > 0;
+        en.cnt += x > 0;
       }
       for (int m = threadIdx.x; m < M; m += kThreads) {
         int x = p.exc_m[m];
         en.pos += max(x, 0);
-        en.any |= x > 0;
+        en.cnt += x > 0 ? kColUnit : 0;
       }
       en = pt_block_reduce(en, EnterOp(), Enter{0, 0}, scratch<Enter>(s));
       const int exc_t = s.exc_t;
-      bool active = (en.any || exc_t > 0) && it < max_iter && tot_it + it < max_iter_total;
+      bool active = (en.cnt != 0 || exc_t > 0) && it < max_iter && tot_it + it < max_iter_total;
       if (!active) break;
-      int tot_excess = pt_saturate(en.pos + max(exc_t, 0));
+      const long long pos = en.pos + max(exc_t, 0);
+      int tot_excess = pt_saturate(pos);
       bool fired = adaptive > 0 ? it >= next_gu : it % global_every == 0;
+      if (p.ring != nullptr && threadIdx.x == 0) {
+        // The sample of the entering state (the reference's _telem_vals).
+        s.tel[kTrIter] = tot_it + it;
+        s.tel[kTrExcess] = tot_excess;
+        s.tel[kTrRows] = en.cnt & (kColUnit - 1);
+        s.tel[kTrCols] = en.cnt >> 16;
+        s.tel[kTrEps] = eps;
+        s.tel[kTrGu] = fired ? 1 : 0;
+        s.tel[kTrBf] = 0;
+        s.tel[kTrSat] = pos >= PT_EXCESS_SAT_THRESH ? 1 : 0;
+      }
       push_sweep(p, total, s);
       if (fired) {
-        bf += global_update(p, eps, bf_max, s);
+        const int sweeps = global_update(p, eps, bf_max, s);
+        bf += sweeps;
+        if (p.ring != nullptr && threadIdx.x == 0) s.tel[kTrBf] = sweeps;
         int gap_f = tot_excess <= last_exc / 2 ? min(gap * 2, global_every * 4) : global_every;
         next_gu = it + gap_f;
         gap = gap_f;
         last_exc = tot_excess;
       } else {
         local_relabel(p, eps, s);
+      }
+      if (p.ring != nullptr && threadIdx.x == 0) {
+        const int cap = p.ring_cap;
+        int* r = p.ring + s.tel[kTrIter] % cap;
+#pragma unroll
+        for (int row = 0; row < 8; ++row) r[row * cap] = s.tel[row];
       }
       ++it;
     }
@@ -807,16 +845,23 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
 extern "C" size_t pt_fused_ladder_smem_bytes(int E) { return ladder_smem_bytes(E); }
 
 // Plain C entry point.  ``ws`` is an int32 workspace of
-// 3 * E * M + 5 * E + 6 * M elements; all pointers are device pointers.
+// 3 * E * M + 5 * E + 6 * M elements; ``ring`` is null or a zeroed
+// [8, ring_cap] int32 telemetry ring of its own; all pointers are device
+// pointers.
 extern "C" int pt_fused_ladder(const int* C, const int* U, const int* sup,
                                const int* cap, const int* Uem, int* F,
                                int* Ffb, int* Fmt, int* pe, int* pm, int* pt,
-                               const int* knobs, int* stats, int* ws, int E,
-                               int M, void* stream) {
+                               const int* knobs, int* stats, int* ws,
+                               int* ring, int E, int M, int ring_cap,
+                               void* stream) {
   Planes p;
   p.C = C; p.U = U; p.sup = sup; p.cap = cap; p.Uem = Uem;
   p.F = F; p.Ffb = Ffb; p.Fmt = Fmt; p.pe = pe; p.pm = pm; p.pt = pt;
   p.E = E; p.M = M;
+  p.ring = ring_cap > 0 ? ring : nullptr;
+  p.ring_cap = ring_cap;
+  // The entering-state counts pack rows and columns into one int.
+  if (E >= kColUnit || M >= (1 << 15)) return (int)cudaErrorInvalidValue;
   int* q = ws;
   p.P = q; q += (size_t)E * M;
   p.Lf = q; q += (size_t)E * M;

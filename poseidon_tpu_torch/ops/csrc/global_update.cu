@@ -39,7 +39,10 @@
 //     sweeps marks the group's flag; after the group's last barrier every
 //     block reads the same flag, so the loop condition (changed && sweeps
 //     <= bf_max) is uniform across the grid.
-// The sweep count is added to a device counter (the solve's statistics).
+// The sweep count is added to a device counter (the solve's statistics),
+// and, with the solve's telemetry ring, written with the fired bit into the
+// column of the iteration the update belongs to (the host passes it: it
+// reads the phase status before any update).
 
 #include "common.cuh"
 
@@ -67,7 +70,8 @@ struct Gu {
   int* flag;               // [groups]
   int* fmax;               // [1]
   unsigned* bar;           // [2] grid barrier: arrivals, generation
-  int E, M, eps, bf_max, groups, tile_smem;
+  int* ring;               // [8, ring_cap] telemetry ring, or null
+  int E, M, eps, bf_max, groups, tile_smem, ring_slot, ring_cap;
 };
 
 // Dynamic shared memory: d_e, and with ``tile_smem`` the block's tile of
@@ -325,6 +329,10 @@ __global__ void __launch_bounds__(kThreads) pt_global_update(Gu q) {
     const int d = dt_f >= PT_DINF ? dbig : dt_f;
     q.pto[0] = ok ? max(pt - eps * d, PT_NEG_HALF) : pt;
     q.sweeps_acc[0] += sweeps;
+    if (q.ring != nullptr) {
+      q.ring[kTrGu * q.ring_cap + q.ring_slot] = 1;
+      q.ring[kTrBf * q.ring_cap + q.ring_slot] = sweeps;
+    }
   }
 }
 
@@ -372,14 +380,17 @@ extern "C" int pt_global_update_plan(int E, int M, int* plan) {
 
 // Plain C entry point: one global update on ``stream`` as one cooperative
 // launch of ``grid`` blocks with ``tile_smem`` (pt_global_update_plan).  Writes
-// (peo, pmo, pto) and adds the sweeps to sweeps_acc[0].  Returns the launch's
-// error code (a grid that cannot be co-resident is refused, never run).
+// (peo, pmo, pto) and adds the sweeps to sweeps_acc[0]; with a telemetry
+// ``ring`` (null for none) it marks column ``ring_slot`` fired, with its
+// sweeps.  Returns the launch's error code (a grid that cannot be
+// co-resident is refused, never run).
 extern "C" int pt_global_update_launch(
     const int* C, const int* Uem, const int* U, const int* sup, const int* cap,
     const int* F, const int* Ffb, const int* Fmt, const int* pe, const int* pm,
     const int* pt, const int* exc_e, const int* exc_m, const int* exc_t,
-    int* peo, int* pmo, int* pto, int* sweeps_acc, int* ws, int E, int M,
-    int eps, int bf_max, int grid, int tile_smem, void* stream) {
+    int* peo, int* pmo, int* pto, int* sweeps_acc, int* ws, int* ring, int E,
+    int M, int eps, int bf_max, int grid, int tile_smem, int ring_slot,
+    int ring_cap, void* stream) {
   Gu q;
   q.C = C; q.Uem = Uem; q.U = U; q.sup = sup; q.cap = cap;
   q.F = F; q.Ffb = Ffb; q.Fmt = Fmt; q.pe = pe; q.pm = pm; q.pt = pt;
@@ -400,6 +411,8 @@ extern "C" int pt_global_update_launch(
   q.fmax = v; v += 1;
   q.bar = reinterpret_cast<unsigned*>(v);
   q.E = E; q.M = M; q.eps = eps; q.bf_max = bf_max; q.tile_smem = tile_smem;
+  q.ring = ring_cap > 0 ? ring : nullptr;
+  q.ring_slot = ring_slot; q.ring_cap = ring_cap;
   void* args[] = {&q};
   // The kernel's shared-memory limit is per function, not per launch: set
   // it for this launch's size, which another shape's plan may have lowered.

@@ -31,7 +31,17 @@
 //                chunk sums, the reductions of the partials into Fmt',
 //                Ffb', the excesses and the machine and EC relabels; the
 //                last block to finish reduces the chunks' scalars into
-//                exc_t', the sink relabel and the phase status.
+//                exc_t', the sink relabel and the phase status, and
+//                writes the iteration's telemetry sample.
+// The convergence-telemetry ring (the reference's phase-loop ring) rides
+// the last launch: the phase status (ops/transport.py, _ST_*) carries,
+// besides activity, the excess total and the count, the positive rows and
+// columns and the saturation bit of the state it describes, so the last
+// block of pt_final writes the sample of the iteration it just ran from
+// the ENTERING status, gated by its active bit: iterations past
+// convergence in an unroll group write nothing.  The global-update kernel
+// sets the fired bit and sweeps of its iteration's column.  No launch and
+// no host read is added.
 // Integer sums do not depend on how they are split, and OR and max not on
 // order, so every output is bit-equal to the plain iteration.  C, Uem and
 // F are read in passes 1 and 2 (pass 2 re-reads its tile from L1/L2 in
@@ -66,9 +76,11 @@ struct Iter {
   int* rowseg; int* colseg; int* sinkseg;
   int* r_ec; int* r_sum; int* r_adm; int* r_cand;  // [col tiles][E]
   int* c_sum; int* c_adm; int* c_cand;             // [row tiles][M]
-  int* bpart;                         // [chunks][4] flow, adm, cand, anypos
+  int* bpart;                         // [chunks][4] flow, adm, cand, cnt
   unsigned* ticket;                   // [1], 0 between launches
+  int* ring;                          // [8, ring_cap] telemetry, or null
   int E, M, eps, do_relabel, total, col_tiles, row_tiles, chunks;
+  int ring_base, ring_cap;            // earlier phases' iterations; capacity
 };
 
 // The sink's residual toward entry i of [machines, ECs] (0 when the sink
@@ -267,14 +279,20 @@ __global__ void __launch_bounds__(kThreads) pt_push(Iter q) {
   }
 }
 
-// The sink relabel's and the phase status's reductions.
+// The sink relabel's and the phase status's reductions.  ``cnt`` packs
+// the nodes with positive excess into one int, EC rows in the low 10 bits
+// and machine columns above (E < 2^10 and M < 2^21, checked at launch):
+// a separate int for each widened the struct, which measured ~6 us more
+// per iteration at [128, 10240] on an H100 (chip_smoke.py --compare).
+constexpr int kColShift = 10;
+constexpr int kColUnit = 1 << kColShift;
 struct Scal {
-  int flow, adm, cand, anypos;
+  int flow, adm, cand, cnt;
   long long pos;
 };
 struct ScalOp {
   __device__ Scal operator()(Scal a, Scal b) const {
-    return {a.flow + b.flow, a.adm | b.adm, max(a.cand, b.cand), a.anypos | b.anypos,
+    return {a.flow + b.flow, a.adm | b.adm, max(a.cand, b.cand), a.cnt + b.cnt,
             a.pos + b.pos};
   }
 };
@@ -312,7 +330,7 @@ __global__ void __launch_bounds__(kChunk) pt_final(Iter q) {
     const bool has_adm = (rc_mt < 0 && mt_open) || adm_any;
     const int maxcand = max(mt_open ? pt : PT_NEG, cand);
     q.pmo[m] = q.do_relabel ? pt_relabel(maxcand, has_adm, xm, pm, q.eps) : pm;
-    v = {fmt, (-rc_mt < 0 && fmt > 0) ? 1 : 0, fmt > 0 ? pm : PT_NEG, xm > 0 ? 1 : 0,
+    v = {fmt, (-rc_mt < 0 && fmt > 0) ? 1 : 0, fmt > 0 ? pm : PT_NEG, xm > 0 ? kColUnit : 0,
          xm > 0 ? (long long)xm : 0LL};
   } else if (i < M + E) {
     // EC e: its fallback push (after its machine pushes), F' row
@@ -345,7 +363,7 @@ __global__ void __launch_bounds__(kChunk) pt_final(Iter q) {
     bp[0] = v.flow;
     bp[1] = v.adm;
     bp[2] = v.cand;
-    bp[3] = v.anypos;
+    bp[3] = v.cnt;
     q.bpos[k] = v.pos;
     __threadfence();
     last = atomicAdd(q.ticket, 1u) == (unsigned)q.chunks - 1;
@@ -364,10 +382,30 @@ __global__ void __launch_bounds__(kChunk) pt_final(Iter q) {
     const int xt = t.flow - q.total;
     q.exc_to[0] = xt;
     q.pto[0] = q.do_relabel ? pt_relabel(t.cand, t.adm != 0, xt, pt, q.eps) : pt;
-    // Phase status: the entering iteration counted iff it was active.
-    q.sto[2] = q.st[2] + q.st[0];
-    q.sto[0] = (t.anypos || xt > 0) ? 1 : 0;
-    q.sto[1] = pt_saturate(t.pos + max(xt, 0));
+    // Phase status of the new state: the entering iteration counted iff
+    // it was active.
+    const long long pos = t.pos + max(xt, 0);
+    q.sto[kStIters] = q.st[kStIters] + q.st[kStActive];
+    q.sto[kStActive] = (t.cnt > 0 || xt > 0) ? 1 : 0;
+    q.sto[kStExcess] = pt_saturate(pos);
+    q.sto[kStRows] = t.cnt & (kColUnit - 1);
+    q.sto[kStCols] = t.cnt >> kColShift;
+    q.sto[kStSat] = pos >= PT_EXCESS_SAT_THRESH ? 1 : 0;
+    // The telemetry sample of the iteration just run, from its entering
+    // status; a global update run in place of the relabel marks its
+    // fired bit and sweeps afterwards.
+    if (q.ring != nullptr && q.st[kStActive]) {
+      const int g = q.ring_base + q.st[kStIters], cap = q.ring_cap;
+      int* r = q.ring + g % cap;
+      r[kTrIter * cap] = g;
+      r[kTrExcess * cap] = q.st[kStExcess];
+      r[kTrRows * cap] = q.st[kStRows];
+      r[kTrCols * cap] = q.st[kStCols];
+      r[kTrEps * cap] = q.eps;
+      r[kTrGu * cap] = 0;
+      r[kTrBf * cap] = 0;
+      r[kTrSat * cap] = q.st[kStSat];
+    }
     *q.ticket = 0;
   }
 }
@@ -395,16 +433,20 @@ extern "C" long long pt_tiled_iteration_ws_ints(int E, int M) {
 extern "C" unsigned long long pt_tiled_iteration_kernels() { return g_kernels; }
 
 // Plain C entry point: the three launches of one iteration on ``stream``.
-// All pointers are device pointers; ``ws`` is the workspace above.
-// Returns cudaGetLastError().
+// All pointers are device pointers; ``ws`` is the workspace above; ``st``
+// and ``sto`` are 6-int phase statuses; ``ring`` is null or the solve's
+// [8, ring_cap] telemetry ring, and ``ring_base`` the iterations of its
+// earlier phases.  Refuses E >= 2^10 or M >= 2^21 (the packed counts);
+// otherwise returns cudaGetLastError().
 extern "C" int pt_tiled_iteration(
     const int* C, const int* Uem, const int* U, const int* sup,
     const int* cap, const int* F, const int* Ffb, const int* Fmt,
     const int* pe, const int* pm, const int* pt, const int* exc_e,
     const int* exc_m, const int* exc_t, const int* st, int* Fo, int* Ffbo,
     int* Fmto, int* peo, int* pmo, int* pto, int* exc_eo, int* exc_mo,
-    int* exc_to, int* sto, int* ws, int E, int M, int eps, int do_relabel,
-    int total, void* stream) {
+    int* exc_to, int* sto, int* ws, int* ring, int E, int M, int eps,
+    int do_relabel, int total, int ring_base, int ring_cap, void* stream) {
+  if (E >= kColUnit || M >= (1 << (31 - kColShift))) return (int)cudaErrorInvalidValue;
   const Shape sh(E, M);
   Iter q;
   q.C = C; q.Uem = Uem; q.U = U; q.sup = sup; q.cap = cap;
@@ -427,6 +469,8 @@ extern "C" int pt_tiled_iteration(
   q.c_cand = v; v += (size_t)sh.row_tiles * M;
   q.bpart = v; v += 4 * sh.chunks;
   q.ticket = reinterpret_cast<unsigned*>(v);
+  q.ring = ring_cap > 0 ? ring : nullptr;
+  q.ring_base = ring_base; q.ring_cap = ring_cap;
   q.E = E; q.M = M; q.eps = eps; q.do_relabel = do_relabel; q.total = total;
   q.col_tiles = sh.col_tiles; q.row_tiles = sh.row_tiles; q.chunks = sh.chunks;
   cudaStream_t s = (cudaStream_t)stream;

@@ -131,6 +131,155 @@ class TransportSolution:
     # (0 = full cold ladder, NUM_PHASES = answered with no device
     # ladder at all) — the "ladder entry phase" telemetry series.
     entry_phase: int = 0
+    # Per-iteration convergence curve captured on the device
+    # (POSEIDON_SOLVE_TELEMETRY; decode_telemetry).  None when the ring
+    # is off or the solve was answered without a device ladder.
+    telemetry: Optional["SolveTelemetry"] = None
+
+
+# ------------------------------------------------------ solve telemetry ring
+# Row layout of the convergence-telemetry ring, one layout for the plain
+# ladder and every kernel route (the reference's, row for row).  The ring
+# is an int32 [TELEM_ROWS, cap] buffer; global iteration ``it`` writes
+# column ``it % cap``, so a solve shorter than cap keeps its whole curve
+# and a longer one its last cap samples.
+TELEM_ROWS = 8
+_TR_ITER = 0      # global iteration index (across phases)
+_TR_EXCESS = 1    # total ACTIVE excess entering the iteration
+_TR_ROWS = 2      # EC rows with positive excess
+_TR_COLS = 3      # machine columns with positive excess
+_TR_EPS = 4       # the phase's epsilon rung
+_TR_GU = 5        # 1 when this iteration ran the global update
+_TR_BF = 6        # Bellman-Ford sweeps spent this iteration
+_TR_SAT = 7       # 1 when the active-excess total saturated (clamped to
+#                   INT32_MAX instead of wrapping)
+
+
+def solve_telemetry_cap() -> int:
+    """Ring capacity (samples); 0 = telemetry off, and then no ring is
+    threaded through any route.  Rounded up to a multiple of 128, as the
+    reference's kernels lay it out."""
+    if not hatch_bool("POSEIDON_SOLVE_TELEMETRY"):
+        return 0
+    cap = hatch_int("POSEIDON_SOLVE_TELEMETRY_CAP", 512)
+    if cap <= 0:
+        return 0
+    return -(-cap // 128) * 128
+
+
+@dataclass
+class SolveTelemetry:
+    """Decoded per-iteration convergence curve of one device solve.
+
+    Arrays are aligned sample-wise (oldest first).  ``total_iters`` can
+    exceed ``samples()`` when the ring wrapped; the arrays then hold the
+    LAST ``cap`` iterations."""
+
+    iters: np.ndarray          # global iteration index per sample
+    active_excess: np.ndarray  # total active excess entering the iteration
+    active_rows: np.ndarray    # EC rows with positive excess
+    active_cols: np.ndarray    # machine columns with positive excess
+    eps: np.ndarray            # epsilon rung of the sample's phase
+    gu_fired: np.ndarray       # 1 where the global update ran
+    bf_sweeps: np.ndarray      # Bellman-Ford sweeps spent that iteration
+    # 1 where the active-excess total saturated: those active_excess
+    # samples are lower bounds, not exact totals.
+    saturated: np.ndarray = None  # type: ignore[assignment]
+    total_iters: int = 0
+    cap: int = 0
+
+    def samples(self) -> int:
+        return int(self.iters.size)
+
+    def gu_firings(self) -> int:
+        return int(self.gu_fired.sum())
+
+    def saturated_samples(self) -> int:
+        if self.saturated is None:
+            return 0
+        return int(self.saturated.sum())
+
+    def wrapped(self) -> bool:
+        return self.total_iters > self.samples()
+
+    def decay_half_life(self) -> float:
+        """Iterations for the active excess to first drop to half its
+        initial sample (0.0 when it never did within the window)."""
+        return float(self._iters_to_fraction(0.5))
+
+    def iters_to_drain(self, frac: float = 0.9) -> int:
+        """Iterations until ``frac`` of the initial active excess had
+        drained; ``total_iters`` when the window never crossed it."""
+        got = self._iters_to_fraction(1.0 - frac)
+        return int(got if got else self.total_iters)
+
+    def _iters_to_fraction(self, keep: float) -> int:
+        if self.samples() == 0:
+            return 0
+        exc0 = int(self.active_excess[0])
+        if exc0 <= 0:
+            return 0
+        below = np.nonzero(self.active_excess <= exc0 * keep)[0]
+        if below.size == 0:
+            return 0
+        return int(self.iters[below[0]] - self.iters[0])
+
+    def digest(self, max_points: int = 64) -> dict:
+        """JSON-safe downsampled curve and summary scalars: every
+        ``stride``-th sample plus the last one."""
+        n = self.samples()
+        if n <= max_points:
+            idx = np.arange(n)
+        else:
+            stride = -(-n // max_points)
+            idx = np.arange(0, n, stride)
+            if idx[-1] != n - 1:
+                idx = np.append(idx, n - 1)
+        return {
+            "samples": n,
+            "total_iters": int(self.total_iters),
+            "cap": int(self.cap),
+            "wrapped": self.wrapped(),
+            "gu_firings": self.gu_firings(),
+            "saturated_samples": self.saturated_samples(),
+            "bf_sweeps": int(self.bf_sweeps.sum()),
+            "decay_half_life": self.decay_half_life(),
+            "iters_to_90": self.iters_to_drain(0.9),
+            "iters": [int(v) for v in self.iters[idx]],
+            "active_excess": [int(v) for v in self.active_excess[idx]],
+            "active_rows": [int(v) for v in self.active_rows[idx]],
+            "active_cols": [int(v) for v in self.active_cols[idx]],
+            "eps": [int(v) for v in self.eps[idx]],
+        }
+
+
+def decode_telemetry(ring, total_iters: int) -> Optional[SolveTelemetry]:
+    """Host-side decode of a read ring (``None`` when the ring is empty
+    or no iteration ran).  With ``total_iters > cap`` the ring wrapped and
+    the oldest live sample sits at column ``total_iters % cap``."""
+    ring = np.asarray(ring)
+    if ring.size == 0 or ring.shape[1] == 0:
+        return None
+    cap = int(ring.shape[1])
+    total_iters = int(total_iters)
+    if total_iters <= 0:
+        return None
+    if total_iters <= cap:
+        idx = np.arange(total_iters)
+    else:
+        idx = (np.arange(cap) + total_iters % cap) % cap
+    return SolveTelemetry(
+        iters=ring[_TR_ITER, idx],
+        active_excess=ring[_TR_EXCESS, idx],
+        active_rows=ring[_TR_ROWS, idx],
+        active_cols=ring[_TR_COLS, idx],
+        eps=ring[_TR_EPS, idx],
+        gu_fired=ring[_TR_GU, idx],
+        bf_sweeps=ring[_TR_BF, idx],
+        saturated=ring[_TR_SAT, idx],
+        total_iters=total_iters,
+        cap=cap,
+    )
 
 
 class _Telemetry:
@@ -303,29 +452,59 @@ def _excesses(F, Ffb, Fmt, *, supply, total: int):
 
 
 def _active_excess(exc_e, exc_m, exc_t):
-    """Saturating total ACTIVE (positive) excess as an int32 [1] tensor."""
+    """Saturating total ACTIVE (positive) excess as an int32 [1] tensor,
+    and its saturation flag as a bool [1] tensor."""
     s = (
         exc_e.clamp(min=0).sum(dtype=torch.int64)
         + exc_m.clamp(min=0).sum(dtype=torch.int64)
         + exc_t.clamp(min=0).sum(dtype=torch.int64)
-    )
-    return torch.where(s >= _EXCESS_SAT_THRESH, _EXCESS_SAT, s).to(I32)\
-        .reshape(1)
+    ).reshape(1)
+    sat = s >= _EXCESS_SAT_THRESH
+    return torch.where(sat, _EXCESS_SAT, s).to(I32), sat
+
+
+# The int32 phase status the loop reads once per unroll group.  Every
+# entry describes the state ENTERING the next iteration: whether any node
+# has positive excess, the saturating total active excess, the iterations
+# counted so far, and, for that iteration's telemetry sample, the EC rows
+# and machine columns with positive excess and the saturation flag.
+_ST_ACTIVE, _ST_EXCESS, _ST_ITERS, _ST_ROWS, _ST_COLS, _ST_SAT = range(6)
+STATUS_INTS = 6
 
 
 def _phase_status(exc_e, exc_m, exc_t, iters):
-    """The int32 [3] status the phase loop reads once per unroll group:
-    ``[active, total active excess, iterations counted so far]``, where
-    ``active`` and the total describe the state ENTERING the next
-    iteration.  ``iters`` is a [1] tensor."""
-    act = (exc_e > 0).any() | (exc_m > 0).any() | (exc_t > 0).any()
-    return torch.cat([
-        act.to(I32).reshape(1), _active_excess(exc_e, exc_m, exc_t), iters,
+    """The status (above) of the state with these excesses; ``iters`` is
+    a [1] tensor."""
+    rows = (exc_e > 0).sum(dtype=I32).reshape(1)
+    cols = (exc_m > 0).sum(dtype=I32).reshape(1)
+    act = (rows > 0) | (cols > 0) | (exc_t > 0)
+    tot, sat = _active_excess(exc_e, exc_m, exc_t)
+    return torch.cat([act.to(I32), tot, iters, rows, cols, sat.to(I32)])
+
+
+def _telem_write(ring, st, base: int, eps: int) -> None:
+    """Write the telemetry sample of the iteration entering with status
+    ``st`` into column ``(base + iterations so far) % cap`` of ``ring``,
+    in place and with no host read, when ``st`` says it is active: the
+    plain version of the kernels' ring write.  The global-update rows are
+    written 0; ``_global_update`` sets them when the update runs."""
+    it = st[_ST_ITERS:_ST_ITERS + 1] + base
+    col = torch.remainder(it, ring.shape[1]).long()
+    zero = torch.zeros(1, dtype=I32, device=ring.device)
+    vals = torch.cat([
+        it, st[_ST_EXCESS:_ST_EXCESS + 1], st[_ST_ROWS:_ST_ROWS + 1],
+        st[_ST_COLS:_ST_COLS + 1],
+        torch.full((1,), eps, dtype=I32, device=ring.device), zero, zero,
+        st[_ST_SAT:_ST_SAT + 1],
     ])
+    old = ring.index_select(1, col).reshape(-1)
+    active = st[_ST_ACTIVE:_ST_ACTIVE + 1] > 0
+    ring.index_copy_(1, col, torch.where(active, vals, old)[:, None])
 
 
 def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
-                   *, C, U, Uem, supply, cap, adm, eps: int, bf_max: int):
+                   *, C, U, Uem, supply, cap, adm, eps: int, bf_max: int,
+                   ring=None, ring_slot: int = 0):
     """Goldberg-style global price update (the reference's
     ``_global_update``): Bellman-Ford distances to a deficit node over the
     residual graph under lengths ``floor(rc / eps) + 1``, then potentials
@@ -333,7 +512,8 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
     ``changed`` flag.  Returns ``(pe, pm, pt)`` and adds the sweeps it ran
     to ``sweeps_acc`` (an int32 [1] tensor, the solve's count), as the
     per-iteration route's kernel (``transport_tiled.GlobalUpdate``) does on
-    the device."""
+    the device.  With a telemetry ``ring`` it marks column ``ring_slot``
+    (the firing iteration's) as fired, with its sweeps."""
 
     def lengths(rc):
         return torch.div(rc, eps, rounding_mode="floor") + 1
@@ -387,6 +567,9 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
         sweeps += BF_UNROLL
 
     sweeps_acc += sweeps
+    if ring is not None:
+        ring[_TR_GU, ring_slot] = 1
+        ring[_TR_BF, ring_slot] = sweeps
     if changed:
         # Unconverged: skip the update (it only accelerates; the host
         # certificate re-derives optimality regardless).
@@ -412,7 +595,7 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
 
 def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
                   eps: int, do_relabel: bool, C, U, Uem, supply, cap, adm,
-                  total: int):
+                  total: int, ring=None, ring_base: int = 0):
     """One synchronous push sweep, the new excesses and (with
     ``do_relabel``) the local relabel: the plain version of the
     per-iteration kernel (B2).  Prices are frozen during the push; pushes
@@ -420,7 +603,11 @@ def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
     cumsums.  A state with no positive excess maps to itself exactly (every
     push and relabel is gated on positive excess), which is what lets the
     phase loop run several iterations per host read.  Returns the new
-    state plus the advanced phase status ``st``."""
+    state plus the advanced phase status ``st``.  With a telemetry
+    ``ring`` it first writes this iteration's sample (``_telem_write``,
+    ``ring_base`` = the earlier phases' iterations)."""
+    if ring is not None:
+        _telem_write(ring, st, ring_base, eps)
     rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
     rc_fb = U + pe - pt
     rc_mt = pm - pt
@@ -487,14 +674,15 @@ def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
         pt_new = _relabel_to(maxcand_t, has_adm_t, exc_t, pt, eps)
         pe, pm, pt = pe_new, pm_new, pt_new
 
-    st = _phase_status(exc_e, exc_m, exc_t, st[2:3] + st[0:1])
+    counted = st[_ST_ITERS:_ST_ITERS + 1] + st[_ST_ACTIVE:_ST_ACTIVE + 1]
+    st = _phase_status(exc_e, exc_m, exc_t, counted)
     return F_new, Ffb_new, Fmt_new, pe, pm, pt, exc_e, exc_m, exc_t, st
 
 
 def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
               sweeps, total_iters: int, max_iter: int, max_iter_total: int,
               global_every: int, bf_max: int, adaptive: int, unroll: int,
-              stage: str):
+              stage: str, ring=None):
     """One epsilon phase: refine the carried flows to the new eps, then
     synchronous push/relabel until every excess is zero.
 
@@ -509,8 +697,12 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
     not count, and a global update due mid-group reads the status first,
     so results and counts are those of the reference's loop.  The loop's stages are timed
     as ``<stage>.iterate``, ``.global_update`` and ``.other`` (refine,
-    excesses, status reads).  Returns the new state and the phase's
-    iterations.
+    excesses, status reads).  With a telemetry ``ring`` (int32 [TELEM_ROWS,
+    cap]) each active iteration's sample is written on the device: the
+    entering state's by ``iterate``, and the fired bit and sweeps by
+    ``global_update``, whose iteration the host knows exactly, since it
+    reads the status before any update.  Returns the new state and the
+    phase's iterations.
     """
     F, Ffb, Fmt, pe, pm, pt = state
     dev = F.device
@@ -546,7 +738,7 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
     done = False
     while not done and budget_ok(it):
         with _loop_stage(f"{stage}.other", dev):
-            active, tot, it = (int(v) for v in _host_read(st))
+            active, tot, it = (int(v) for v in _host_read(st)[:3])
         if not active or not budget_ok(it):
             break
         for k in range(unroll):
@@ -557,7 +749,7 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
                 # The update's decision and its cadence state need the
                 # entering state's activity and excess total.
                 with _loop_stage(f"{stage}.other", dev):
-                    active, tot, it = (int(v) for v in _host_read(st))
+                    active, tot, it = (int(v) for v in _host_read(st)[:3])
                 if not active:
                     done = True
                     break
@@ -567,13 +759,17 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
                     F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st,
                     eps=eps, do_relabel=not fire, C=C, U=U, Uem=Uem,
                     supply=supply, cap=cap, adm=adm, total=total,
+                    ring=ring, ring_base=total_iters,
                 )
             if fire:
+                slot = (0 if ring is None
+                        else (total_iters + it) % ring.shape[1])
                 with _loop_stage(f"{stage}.global_update", dev):
                     pe, pm, pt = global_update(
                         F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
                         sweeps, C=C, U=U, Uem=Uem, supply=supply, cap=cap,
-                        adm=adm, eps=eps, bf_max=bf_max,
+                        adm=adm, eps=eps, bf_max=bf_max, ring=ring,
+                        ring_slot=slot,
                     )
                 next_gu, gap, last_exc = _gu_advance(
                     tot, it, gap, last_exc, global_every
@@ -582,7 +778,7 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
                 pe, pm, pt = pe2, pm2, pt2
             it += 1
     with _loop_stage(f"{stage}.other", dev):
-        it = int(_host_read(st[2]))
+        it = int(_host_read(st[_ST_ITERS]))
     return (F, Ffb, Fmt, pe, pm, pt), it
 
 
@@ -619,7 +815,7 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
                   max_iter_total: int, global_every: int, bf_max: int,
                   adaptive_bf: int = 0, *, max_iter: int, scale: int,
                   total: int, iterate=None, global_update=None,
-                  stage: str = "solve.device.lax"):
+                  stage: str = "solve.device.lax", telem_cap: int = 0):
     """The plain torch ladder (the reference's ``_solve_device``): every
     phase of ``eps_sched`` through ``_pr_phase``.  Tensors are int32 on
     one device; budgets and knobs are host ints; ``total`` is the host's
@@ -627,7 +823,9 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
     ``_pr_iteration`` and ``_global_update``.
 
     Returns ``(F, Ffb, prices, stats)``: ``stats`` is int32
-    ``[iters, bf_sweeps, clean, phase_iters...]`` on the device.
+    ``[iters, bf_sweeps, clean, phase_iters..., ring...]`` on the device,
+    where ``ring`` is the flattened [TELEM_ROWS, telem_cap] telemetry ring
+    (absent when ``telem_cap`` is 0: no ring is threaded then).
     """
     E, M = costs.shape
     ops, state = _prepare_operands(
@@ -638,6 +836,8 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
     unroll = iter_unroll(costs.device)
     iters = 0
     sweeps = torch.zeros(1, dtype=I32, device=costs.device)
+    ring = (torch.zeros((TELEM_ROWS, telem_cap), dtype=I32,
+                        device=costs.device) if telem_cap else None)
     phase_iters = []
     for eps in eps_sched:
         state, it = _pr_phase(
@@ -646,6 +846,7 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
             total_iters=iters, max_iter=max_iter,
             max_iter_total=max_iter_total, global_every=global_every,
             bf_max=bf_max, adaptive=adaptive_bf, unroll=unroll, stage=stage,
+            ring=ring,
         )
         iters += it
         phase_iters.append(it)
@@ -656,12 +857,12 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
         torch.tensor([iters], dtype=I32, device=F.device), sweeps,
         clean.to(I32).reshape(1),
         torch.tensor(phase_iters, dtype=I32, device=F.device),
-    ])
+    ] + ([] if ring is None else [ring.reshape(-1)]))
     return F, Ffb, torch.cat([pe, pm, pt]), stats
 
 
 def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
-                         scale: int, impl: str, device):
+                         scale: int, impl: str, device, telem_cap: int = 0):
     """Packed-I/O front of the three routes (``fused``, ``tiled``, plain
     ``lax``).  ``big`` is ``[3, E, M]`` int32 (costs, arc capacity, init
     flows) and ``vec`` the 1-D int32 vector (supply | capacity | unsched
@@ -669,8 +870,8 @@ def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
     global_every, bf_max, adaptive_bf), both host arrays.  Returns the flow
     matrix on the device and ONE host read of the small result vector
     (fallback | prices | iters, bf, clean, unchanged | per-phase
-    iterations), the reference's layout, so the decode ports line for
-    line."""
+    iterations | the flattened telemetry ring, empty when ``telem_cap`` is
+    0), the reference's layout, so the decode ports line for line."""
     _, E, M = big.shape
     o = 0
     cuts = {}
@@ -697,15 +898,18 @@ def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
         from poseidon_tpu_torch.ops.transport_fused import solve_device_fused
 
         F, Ffb, prices, stats = solve_device_fused(
-            *args, max_iter=max_iter, scale=scale, total=total)
+            *args, max_iter=max_iter, scale=scale, total=total,
+            telem_cap=telem_cap)
     elif impl == "tiled":
         from poseidon_tpu_torch.ops.transport_tiled import solve_device_tiled
 
         F, Ffb, prices, stats = solve_device_tiled(
-            *args, max_iter=max_iter, scale=scale, total=total)
+            *args, max_iter=max_iter, scale=scale, total=total,
+            telem_cap=telem_cap)
     else:
         F, Ffb, prices, stats = _solve_device(
-            *args, max_iter=max_iter, scale=scale, total=total)
+            *args, max_iter=max_iter, scale=scale, total=total,
+            telem_cap=telem_cap)
     # A certified warm round often returns the warm start bit-for-bit: the
     # host already owns that matrix, so flag it and skip the [E, M] read.
     unchanged = (F == big_d[2]).all().to(I32).reshape(1)
@@ -1988,10 +2192,11 @@ def solve_transport(
     else:
         impl = "lax"
     _Telemetry.routes[(impl, E_pad, M_pad)] += 1
+    telem_cap = solve_telemetry_cap()
     with _stage("solve.device"), _stage(f"solve.device.{impl}", dev):
         F_dev, small = _solve_device_packed(
             big, vec, max_iter=max_iter_per_phase, scale=int(scale),
-            impl=impl, device=dev,
+            impl=impl, device=dev, telem_cap=telem_cap,
         )
     o = E_pad
     unsched = small[:E]
@@ -2002,6 +2207,12 @@ def solve_transport(
     _Telemetry.route_iters[impl] += iters
     _Telemetry.route_sweeps[impl] += bf
     phase_iters = small[o + 4:o + 4 + NUM_PHASES]
+    telemetry = None
+    if telem_cap:
+        ring_flat = small[o + 4 + NUM_PHASES:
+                          o + 4 + NUM_PHASES + TELEM_ROWS * telem_cap]
+        telemetry = decode_telemetry(
+            ring_flat.reshape(TELEM_ROWS, telem_cap), iters)
     if unchanged:
         # The solve returned the warm start bit-for-bit; reuse the host's
         # own copy instead of reading [E_pad, M_pad] back.  Copy: callers
@@ -2024,6 +2235,7 @@ def solve_transport(
     # Telemetry: how many cold-ladder rungs the start skipped (the
     # device ladder actually entered at eps_sched[0]).
     sol.entry_phase = ladder_entry_phase(eps0_cold, int(eps_sched[0]))
+    sol.telemetry = telemetry
     return sol
 
 
@@ -2280,4 +2492,5 @@ def solve_transport_selective(
         bf_sweeps=sol_r.bf_sweeps,
         phase_iters=sol_r.phase_iters,
         entry_phase=sol_r.entry_phase,
+        telemetry=sol_r.telemetry,
     )

@@ -21,6 +21,7 @@ from poseidon_tpu_torch.ops import _kernels
 from poseidon_tpu_torch.ops.transport import (
     I32,
     NUM_PHASES,
+    TELEM_ROWS,
     _prepare_operands,
     _solve_device,
 )
@@ -54,10 +55,12 @@ def ladder_smem_bytes(e_pad: int) -> int:
     return SMEM_SCALAR_BYTES + 4 * (SMEM_PART_INTS + 3 * e_pad)
 
 
-def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor):
+def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
     """Launch B1 on prepared operands; updates the flow/price state in
     place and returns the int32 stats ``[iters, bf, clean,
-    phase_iters...]``."""
+    phase_iters...]``.  With ``ring``, a zeroed int32 [TELEM_ROWS, cap]
+    tensor of its own (never the workspace), the kernel writes each
+    active iteration's telemetry sample into it."""
     F, Ffb, Fmt, pe, pm, pt = state
     E, M = F.shape
     dev = F.device
@@ -74,8 +77,11 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor):
         ck(pm, "pm", (M,), dev), ck(pt, "pt", (1,), dev),
         ck(knobs, "knobs", (10,), dev), stats.data_ptr(), ws.data_ptr(),
     ]
+    cap = 0 if ring is None else ring.shape[1]
+    ring_ptr = (None if ring is None
+                else ck(ring, "ring", (TELEM_ROWS, cap), dev))
     _kernels.LAUNCHES["fused_ladder"] += 1
-    rc = so.pt_fused_ladder(*args, E, M,
+    rc = so.pt_fused_ladder(*args, ring_ptr, E, M, cap,
                             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.launch_check(rc, "fused_ladder")
     return stats
@@ -84,15 +90,16 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor):
 def solve_device_fused(costs, supply, capacity, unsched_cost, arc_cap,
                        init_prices, init_flows, init_fb, eps_sched,
                        max_iter_total, global_every, bf_max, adaptive_bf=0,
-                       *, max_iter, scale, total):
+                       *, max_iter, scale, total, telem_cap=0):
     """``transport._solve_device`` as one B1 launch (CUDA tensors) or as
-    the plain ladder (CPU tensors).  Returns ``(F, Ffb, prices, stats)``."""
+    the plain ladder (CPU tensors).  Returns ``(F, Ffb, prices, stats)``,
+    ``stats`` with the telemetry ring appended when ``telem_cap`` > 0."""
     if costs.device.type == "cpu":
         return _solve_device(
             costs, supply, capacity, unsched_cost, arc_cap, init_prices,
             init_flows, init_fb, eps_sched, max_iter_total, global_every,
             bf_max, adaptive_bf, max_iter=max_iter, scale=scale, total=total,
-            stage="solve.device.fused",
+            stage="solve.device.fused", telem_cap=telem_cap,
         )
     ops, state = _prepare_operands(
         costs, supply, capacity, unsched_cost, arc_cap, init_prices,
@@ -104,6 +111,10 @@ def solve_device_fused(costs, supply, capacity, unsched_cost, arc_cap,
                                        adaptive_bf],
         dtype=I32,
     ).to(costs.device)
-    stats = fused_ladder(ops, state, knobs)
+    ring = (torch.zeros((TELEM_ROWS, telem_cap), dtype=I32,
+                        device=costs.device) if telem_cap else None)
+    stats = fused_ladder(ops, state, knobs, ring)
+    if ring is not None:
+        stats = torch.cat([stats, ring.reshape(-1)])
     F, Ffb, _Fmt, pe, pm, pt = state
     return F, Ffb, torch.cat([pe, pm, pt]), stats

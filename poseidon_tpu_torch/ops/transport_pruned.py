@@ -787,6 +787,9 @@ def solve_pruned(
                 iterations=iters,
                 bf_sweeps=bf,
                 phase_iters=sol_r.phase_iters,
+                # The (last) reduced solve's convergence curve: the
+                # accepted plane's device work is that solve's.
+                telemetry=sol_r.telemetry,
             )
             stats["sel"] = sel
             return sol, eff_full, stats

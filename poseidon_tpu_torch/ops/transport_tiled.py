@@ -28,6 +28,8 @@ import torch
 from poseidon_tpu_torch.ops import _kernels
 from poseidon_tpu_torch.ops.transport import (
     I32,
+    STATUS_INTS,
+    TELEM_ROWS,
     _global_update,
     _pr_iteration,
     _solve_device,
@@ -70,7 +72,19 @@ class _Operands:
             ck(cap, "cap", (M,), dev),
         ]
         self.key, self.E, self.M, self.dev = key, E, M, dev
+        self.ring = self.ring_ptr = None
         return True
+
+    def ring_args(self, ring):
+        """The kernel's ring pointer and capacity (null and 0 without a
+        ring); the solve's one ring is checked once."""
+        if ring is None:
+            return None, 0
+        if ring is not self.ring:
+            self.ring_ptr = _kernels.check(
+                ring, "ring", (TELEM_ROWS, ring.shape[1]), self.dev)
+            self.ring = ring
+        return self.ring_ptr, ring.shape[1]
 
 
 class TiledIteration:
@@ -89,15 +103,16 @@ class TiledIteration:
     def _alloc(self):
         E, M, dev = self._ops.E, self._ops.M, self._ops.dev
         return [torch.empty(s, dtype=I32, device=dev) for s in
-                ((E, M), E, M, E, M, 1, E, M, 1, 3)]
+                ((E, M), E, M, E, M, 1, E, M, 1, STATUS_INTS)]
 
     def __call__(self, F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
-                 eps, do_relabel, C, U, Uem, supply, cap, adm, total):
+                 eps, do_relabel, C, U, Uem, supply, cap, adm, total,
+                 ring=None, ring_base=0):
         if F.device.type == "cpu":
             return _pr_iteration(
                 F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, eps=eps,
                 do_relabel=do_relabel, C=C, U=U, Uem=Uem, supply=supply,
-                cap=cap, adm=adm, total=total,
+                cap=cap, adm=adm, total=total, ring=ring, ring_base=ring_base,
             )
         ops = self._ops
         if ops.bind(C, Uem, U, supply, cap):
@@ -107,7 +122,7 @@ class TiledIteration:
         in_ids = {id(t) for t in ins}
         owned = set() if self._sets is None else self._ids[0] | self._ids[1]
         shapes = ((E, M), (E,), (M,), (E,), (M,), (1,), (E,), (M,), (1,),
-                  (3,))
+                  (STATUS_INTS,))
         ptrs = [t.data_ptr() if id(t) in owned
                 else _kernels.check(t, name, shape, dev)
                 for t, name, shape in zip(ins, self._STATE, shapes)]
@@ -128,11 +143,13 @@ class TiledIteration:
             self._ids[k] = {id(t) for t in self._sets[k]}
         self._next = 1 - k
         outs = self._sets[k]
+        ring_ptr, ring_cap = ops.ring_args(ring)
         _kernels.LAUNCHES["tiled_iteration"] += 1
         rc = so.pt_tiled_iteration(
             *ops.ptrs, *ptrs, *[o.data_ptr() for o in outs],
-            self._ws.data_ptr(), E, M, int(eps), 1 if do_relabel else 0,
-            int(total), torch.cuda.current_stream(dev).cuda_stream,
+            self._ws.data_ptr(), ring_ptr, E, M, int(eps),
+            1 if do_relabel else 0, int(total), int(ring_base), ring_cap,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         _kernels.launch_check(rc, "tiled_iteration")
         return tuple(outs)
@@ -155,19 +172,21 @@ class GlobalUpdate:
     the convergence flags and the grid barrier) is allocated at the first
     call.  Each call is one cooperative launch that runs the whole
     Bellman-Ford loop and adds its sweeps to ``sweeps_acc`` on the
-    device; it writes fresh (pe, pm, pt)."""
+    device; it writes fresh (pe, pm, pt), and with a telemetry ``ring``
+    marks column ``ring_slot`` as fired, with its sweeps."""
 
     def __init__(self):
         self._ops = _Operands()
         self._ws = self._bf_max = None
 
     def __call__(self, F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
-                 sweeps_acc, *, C, U, Uem, supply, cap, adm, eps, bf_max):
+                 sweeps_acc, *, C, U, Uem, supply, cap, adm, eps, bf_max,
+                 ring=None, ring_slot=0):
         if F.device.type == "cpu":
             return _global_update(
                 F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
                 C=C, U=U, Uem=Uem, supply=supply, cap=cap, adm=adm, eps=eps,
-                bf_max=bf_max,
+                bf_max=bf_max, ring=ring, ring_slot=ring_slot,
             )
         ops = self._ops
         if ops.bind(C, Uem, U, supply, cap) or self._bf_max != bf_max:
@@ -194,10 +213,15 @@ class GlobalUpdate:
             self._plan = global_update_plan(E, M)
             self._bf_max = bf_max
         outs = [torch.empty(n, dtype=I32, device=dev) for n in (E, M, 1)]
+        ring_ptr, ring_cap = ops.ring_args(ring)
+        if ring is not None and not 0 <= ring_slot < ring_cap:
+            raise ValueError(f"global_update: ring slot {ring_slot} outside "
+                             f"[0, {ring_cap})")
         _kernels.LAUNCHES["global_update"] += 1
         rc = so.pt_global_update_launch(
             *ops.ptrs, *ptrs, *[o.data_ptr() for o in outs], acc,
-            self._ws.data_ptr(), E, M, int(eps), int(bf_max), *self._plan,
+            self._ws.data_ptr(), ring_ptr, E, M, int(eps), int(bf_max),
+            *self._plan, int(ring_slot), ring_cap,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _kernels.launch_check(rc, "global_update")
@@ -207,14 +231,15 @@ class GlobalUpdate:
 def solve_device_tiled(costs, supply, capacity, unsched_cost, arc_cap,
                        init_prices, init_flows, init_fb, eps_sched,
                        max_iter_total, global_every, bf_max, adaptive_bf=0,
-                       *, max_iter, scale, total):
+                       *, max_iter, scale, total, telem_cap=0):
     """``transport._solve_device`` with this route's iteration and global
-    update, each created once for the solve.  Returns ``(F, Ffb, prices,
-    stats)``."""
+    update, each created once for the solve; the telemetry ring (when
+    ``telem_cap`` > 0) is written by their kernels inside launches the
+    route makes anyway.  Returns ``(F, Ffb, prices, stats)``."""
     return _solve_device(
         costs, supply, capacity, unsched_cost, arc_cap, init_prices,
         init_flows, init_fb, eps_sched, max_iter_total, global_every,
         bf_max, adaptive_bf, max_iter=max_iter, scale=scale, total=total,
         iterate=TiledIteration(), global_update=GlobalUpdate(),
-        stage="solve.device.tiled",
+        stage="solve.device.tiled", telem_cap=telem_cap,
     )

@@ -38,6 +38,7 @@ class FirmamentServicer:
 
     def __init__(self, config: Optional[FirmamentTPUConfig] = None) -> None:
         self.config = config or FirmamentTPUConfig()
+        self.config.validate()
         planner_kw = dict(
             gang_scheduling=self.config.gang_scheduling,
             pod_affinity=self.config.pod_affinity,
@@ -46,15 +47,23 @@ class FirmamentServicer:
         path = self.config.checkpoint_path
         if path and os.path.exists(path):
             # Restart recovery: placements and solver warm frames come
-            # back, so the first round solves warm.
+            # back, so the first round solves warm.  An unreadable
+            # checkpoint degrades to a fresh start (the client replays its
+            # world onto ALREADY_* replies): recovery must never be the
+            # reason the scheduler cannot start.
             from poseidon_tpu_torch.graph.snapshot import load_checkpoint
 
-            state, planner = load_checkpoint(
-                path, cost_model=get_cost_model(self.config.cost_model),
-                device=self.config.device, **planner_kw,
-            )
-            log.info("restored checkpoint %s: %d machines, %d tasks",
-                     path, len(state.machines), len(state.tasks))
+            try:
+                state, planner = load_checkpoint(
+                    path, cost_model=get_cost_model(self.config.cost_model),
+                    device=self.config.device, **planner_kw,
+                )
+                log.info("restored checkpoint %s: %d machines, %d tasks",
+                         path, len(state.machines), len(state.tasks))
+            except Exception as e:  # noqa: BLE001 - degrade, don't die
+                log.error("checkpoint %s unreadable (%s); starting fresh",
+                          path, e)
+                state = planner = None
         self.state = state or ClusterState()
         self.planner = planner or RoundPlanner(
             self.state, get_cost_model(self.config.cost_model),

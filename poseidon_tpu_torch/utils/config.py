@@ -25,11 +25,21 @@ class FirmamentTPUConfig:
     deploy/firmament-deployment.yaml:29)."""
 
     listen_address: str = "0.0.0.0:9090"
+    # Prometheus exposition endpoint; the port has no exporter yet, so it
+    # must stay empty.
+    metrics_address: str = ""
     # Cost model selection: "cpu_mem" (the reference's active model) or
     # "trivial".
     cost_model: str = "cpu_mem"
+    # Solver selection: "auction", the cost-scaling push-relabel ladder,
+    # is the only solver the port has.
+    flow_solver: str = "auction"
     # Build the CUDA kernels before the first Schedule() instead of in it.
     precompile: bool = False
+    # Precompile ceilings of the reference's shape ladder.  Accepted as
+    # hints: the port compiles nothing per shape ahead of time.
+    max_machines: int = 1024
+    max_ecs: int = 256
     # Default per-machine task slots when the node topology carries no
     # task_capacity (the Firmament --max_tasks_per_pu analog).
     max_tasks_per_pu: int = 100
@@ -37,6 +47,12 @@ class FirmamentTPUConfig:
     # wholesale (gang repair re-solves / affinity cost terms).
     gang_scheduling: bool = True
     pod_affinity: bool = True
+    # Devices the solve's machine axis is split over; the port solves on
+    # one.
+    solver_devices: int = 1
+    # Per-round profiler captures; the port has no profiler hook yet, so
+    # it must stay empty.
+    profile_dir: str = ""
     # Checkpoint/restore: when set, the service restores state + solver
     # warm frames from this path at startup and saves on shutdown;
     # checkpoint_every_rounds > 0 also saves after every Nth round.
@@ -45,6 +61,23 @@ class FirmamentTPUConfig:
     # The solve's device: "cuda" (default) or "cpu".
     device: str = "cuda"
     config_file: str = ""
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` on a value the port cannot honour yet,
+        rather than run something other than what was asked for."""
+        if self.flow_solver != "auction":
+            raise ValueError(
+                f"flow_solver {self.flow_solver!r}: the port has only the "
+                "'auction' solver")
+        if self.solver_devices != 1:
+            raise ValueError(
+                f"solver_devices {self.solver_devices}: the port solves on "
+                "one device")
+        for key in ("profile_dir", "metrics_address"):
+            if getattr(self, key):
+                raise ValueError(
+                    f"{key} {getattr(self, key)!r}: the port has no "
+                    f"{key.split('_')[0]} support yet; leave it empty")
 
 
 def _str2bool(s: str) -> bool:
@@ -108,4 +141,5 @@ def load_config(
             setattr(cfg, f.name, val)
     for key, value in (overrides or {}).items():
         setattr(cfg, key, value)
+    cfg.validate()
     return cfg

@@ -58,6 +58,17 @@ HATCHES: Tuple[Hatch, ...] = (
           "Per-iteration kernel for shapes past the fused gate (CUDA "
           "default on; 0 runs the plain torch iteration)"),
 
+    Hatch("POSEIDON_COARSE", "bool_on", "1",
+          "Fresh-wave coarse warm start: solve the machine-aggregated "
+          "instance and lift its duals"),
+    Hatch("POSEIDON_SOLVE_TELEMETRY", "bool_on", "1",
+          "Convergence-telemetry ring: one int32 sample per active "
+          "push/relabel iteration, written on the device and read with "
+          "the solve's one small result read; 0 threads no ring"),
+    Hatch("POSEIDON_SOLVE_TELEMETRY_CAP", "int", "512",
+          "Convergence-telemetry ring capacity in samples (rounded up "
+          "to a multiple of 128; 0 threads no ring)"),
+
     Hatch("POSEIDON_MERGE_BANDS", "tristate", "",
           "Merge compatible size bands into one solve (CUDA default on)"),
 

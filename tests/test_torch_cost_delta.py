@@ -33,7 +33,6 @@ from poseidon_tpu_torch.graph.state import ClusterState, MachineInfo, TaskInfo
 DELTA_ENV = {
     "POSEIDON_COST_DELTA_MIN_CELLS": "1",
     "POSEIDON_COST_DELTA_MIN_ROWS": "1",
-    "POSEIDON_SOLVE_TELEMETRY": "0",
 }
 STAT_KEYS = ("delta_hit", "rows_rebuilt", "cols_rebuilt", "path")
 
@@ -176,7 +175,8 @@ def test_churn_planes_match_reference_and_oracle(delta_env):
         assert [(d.task_id, d.resource_id, int(d.type)) for d in jd] == \
             [(d.task_id, d.resource_id, int(d.type)) for d in td]
         for name in ("cost_delta_hits", "cost_rows_rebuilt",
-                     "cost_cols_rebuilt", "objective", "placed"):
+                     "cost_cols_rebuilt", "objective", "placed",
+                     "telem_samples", "telem_iters_to_90"):
             assert getattr(jm, name) == getattr(tm, name), (rnd, name)
         pair.remove_placed(int(rng.integers(0, 6)))
         pair.submit(int(rng.integers(1, 6)), rng, shapes,
@@ -468,7 +468,8 @@ def test_second_round_revives_accepted_union(monkeypatch):
         assert [(d.task_id, d.resource_id, int(d.type)) for d in jd] == \
             [(d.task_id, d.resource_id, int(d.type)) for d in td]
         for name in ("pruned_bands", "pruned_width", "cost_delta_hits",
-                     "pruned_cert_accepts", "objective", "iterations"):
+                     "pruned_cert_accepts", "objective", "iterations",
+                     "telem_samples", "telem_iters_to_90"):
             assert getattr(jm, name) == getattr(tm, name), (r, name)
         metrics.append(tm)
         n_calls.append(len(calls))

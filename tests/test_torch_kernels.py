@@ -149,7 +149,8 @@ def test_operand_check_rejects_what_the_kernels_do_not_take(target, bad):
     with pytest.raises(exc, match="pe"):
         if target == "tiled_iteration":
             TT.TiledIteration()(
-                *state, torch.zeros(3, dtype=torch.int32, device="meta"),
+                *state, torch.zeros(T.STATUS_INTS, dtype=torch.int32,
+                                    device="meta"),
                 eps=1, do_relabel=True, total=0, **ops)
         else:
             TT.GlobalUpdate()(
@@ -184,7 +185,7 @@ def test_tiled_iteration_never_writes_its_inputs(monkeypatch):
         lambda t, name, *a: checked.append(name) or real_check(t, name, *a))
     E, M = 4, 8
     ops, state = _meta_operands(E, M)
-    st = torch.zeros(3, dtype=torch.int32, device="meta")
+    st = torch.zeros(T.STATUS_INTS, dtype=torch.int32, device="meta")
     step = TT.TiledIteration()
     kw = dict(eps=1, do_relabel=True, total=0, **ops)
     ins = (*state, st)
@@ -272,6 +273,62 @@ def test_kernel_matches_plain_on_card(cuda_device, impl, E, M):
     np.testing.assert_array_equal(small, small0)
     for k in keys:
         assert _kernels.LAUNCHES[k] > n0[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,E,M,cap", [
+    ("fused", 128, 256, 512),
+    ("fused", 64, 1000, 128),
+    ("fused", 128, 1280, 512),
+    ("tiled", 40, 1000, 128),
+    ("tiled", 128, 10240, 512),
+    ("tiled", 128, 10240, 128),
+])
+def test_kernel_ring_matches_plain_on_card(cuda_device, impl, E, M, cap):
+    """Each route with the convergence-telemetry ring: its whole small
+    result (the ring at the reference's offsets included) bit-equal to
+    the plain ladder's with the ring, at the default cap and at 128,
+    where longer solves wrap; and its results with the ring equal to its
+    results without it, with the same host reads."""
+    big, vec, scale = _packed(E, M, 3)
+    kw = dict(max_iter=8192, scale=scale, device=cuda_device)
+    r0 = T.host_read_count()
+    F, small = T._solve_device_packed(big, vec, impl=impl, telem_cap=cap,
+                                      **kw)
+    reads_on = T.host_read_count() - r0
+    F0, small0 = T._solve_device_packed(big, vec, impl="lax",
+                                        telem_cap=cap, **kw)
+    np.testing.assert_array_equal(F.cpu().numpy(), F0.cpu().numpy())
+    np.testing.assert_array_equal(small, small0)
+    r0 = T.host_read_count()
+    F_off, off = T._solve_device_packed(big, vec, impl=impl, telem_cap=0,
+                                        **kw)
+    assert T.host_read_count() - r0 == reads_on
+    np.testing.assert_array_equal(F_off.cpu().numpy(), F.cpu().numpy())
+    np.testing.assert_array_equal(off, small[:off.size])
+    o = 2 * E + M + 1
+    t = T.decode_telemetry(small[off.size:].reshape(T.TELEM_ROWS, cap),
+                           int(small[o]))
+    assert t.samples() == min(int(small[o]), cap) > 0
+    assert int(t.iters[-1]) == int(small[o]) - 1
+
+
+@pytest.mark.cuda
+def test_global_update_marks_the_ring_on_card(cuda_device):
+    """The global-update kernel sets its column's fired bit and sweeps
+    as the plain update does, and touches nothing else of the ring."""
+    from poseidon_tpu_torch.ops import transport_tiled as TT
+
+    args = _mid_solve(128, 10240, 5, cuda_device, phase=1)
+    rings = []
+    for update in (TT.GlobalUpdate(), T._global_update):
+        ring = torch.full((T.TELEM_ROWS, 128), 7, dtype=torch.int32,
+                          device=cuda_device)
+        _global_updates(lambda *a, **k: update(*a, ring=ring, ring_slot=77,
+                                               **k), *args, 64)
+        rings.append(ring.cpu().numpy())
+    np.testing.assert_array_equal(rings[0], rings[1])
+    assert rings[0][T._TR_GU, 77] == 1 and rings[0][T._TR_BF, 77] > 0
 
 
 def _pruned_packed(E, M, seed):

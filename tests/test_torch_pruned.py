@@ -30,14 +30,15 @@ TIER_FIELDS = ("placed", "unscheduled", "preempted", "migrated",
                "pruned_width", "pruned_price_out_rounds",
                "pruned_escalations", "pruned_cert_accepts",
                "cost_delta_hits", "cost_rows_rebuilt", "cost_cols_rebuilt",
-               "solve_tier", "ladder_entry_phase")
+               "solve_tier", "ladder_entry_phase", "telem_samples",
+               "telem_gu_firings", "telem_decay_half_life",
+               "telem_iters_to_90")
 
 
 @pytest.fixture(autouse=True)
 def lax_path(monkeypatch):
     monkeypatch.setenv("POSEIDON_FUSED", "0")
     monkeypatch.setenv("POSEIDON_TILED", "0")
-    monkeypatch.setenv("POSEIDON_SOLVE_TELEMETRY", "0")
 
 
 def _fuzz_instance(seed):
@@ -216,6 +217,9 @@ def _both_pruned(inst, **kw):
             assert getattr(sa, name) == getattr(sb, name), name
         assert tuple(map(int, sa.phase_iters)) == \
             tuple(map(int, sb.phase_iters))
+        assert (sa.telemetry is None) == (sb.telemetry is None)
+        if sa.telemetry is not None:
+            assert sa.telemetry.digest() == sb.telemetry.digest()
     return sb, eb, stb
 
 

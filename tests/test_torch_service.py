@@ -7,10 +7,11 @@ round's SchedulingDeltas must be byte-identical and its RoundMetrics
 counts equal.  Two runs: both packages at their defaults (every planner
 tier on — pruned planes, the certificate cache, delta-maintained costs,
 band pipelining, overlapped assignment — with the gates shrunk so the
-tiers fire at test size), and both with those tiers off.  Only the JAX
-package's convergence telemetry, which the port does not carry, is off in
-both.  Also: a coarse-start fresh wave at planner level, and
-``load_reference_checkpoint``.
+tiers fire at test size), and both with those tiers off; the convergence
+telemetry is at its default (on) in both, and its RoundMetrics counts must
+agree too.  Also: a coarse-start fresh wave at planner level, with the
+coarse start on and off, ``load_reference_checkpoint``, and both servers
+starting fresh on an unreadable checkpoint.
 """
 
 import grpc
@@ -38,14 +39,15 @@ SLICE_HATCHES = {
     "POSEIDON_COST_DELTA": "0",
     "POSEIDON_CERT_CACHE": "0",
     "POSEIDON_PIPELINE_BANDS": "0",
-    "POSEIDON_SOLVE_TELEMETRY": "0",
 }
+TELEM_COUNTS = ("telem_samples", "telem_gu_firings", "telem_iters_to_90",
+                "telem_decay_half_life")
 COUNTS = ("placed", "unscheduled", "preempted", "migrated", "objective",
-          "iterations", "bf_sweeps", "num_ecs", "num_tasks", "gap_bound")
-# The tiers-on run: only the telemetry hatch forced, the gates shrunk so
-# the wave prunes and churn rounds take the delta path at test size.
+          "iterations", "bf_sweeps", "num_ecs", "num_tasks",
+          "gap_bound") + TELEM_COUNTS
+# The tiers-on run: every hatch at its default, the gates shrunk so the
+# wave prunes and churn rounds take the delta path at test size.
 TIER_GATES = {
-    "POSEIDON_SOLVE_TELEMETRY": "0",
     "POSEIDON_PRUNE_MIN_ROWS": "2",
     "POSEIDON_PRUNE_MIN_COLS": "32",
     "POSEIDON_PRUNE_WAVE_MIN_ROWS": "2",
@@ -217,6 +219,24 @@ def test_service_deltas_byte_identical_tiers_on(monkeypatch):
 def test_planner_coarse_wave_identical(slice_hatches):
     """A fresh wave big enough for the coarse [E, 256] warm start (the
     main path's shape of work), at planner level."""
+    routes = _coarse_wave_routes()
+    # The contended wave went through the coarse [E, 256] aggregate solve.
+    assert any(m_pad == 256 for _, _, m_pad in routes), routes
+
+
+def test_planner_coarse_wave_identical_coarse_off(slice_hatches,
+                                                  monkeypatch):
+    """The same wave with ``POSEIDON_COARSE=0`` in both packages: no
+    coarse start, the full-width ladder from a cold start, and the same
+    deltas and counts."""
+    monkeypatch.setenv("POSEIDON_COARSE", "0")
+    routes = _coarse_wave_routes()
+    assert routes and not any(m_pad == 256 for _, _, m_pad in routes), routes
+
+
+def _coarse_wave_routes():
+    """Two rounds of the 1900-machine wave through both planners with
+    identical deltas and counts; returns the port's solve routes."""
     from poseidon_tpu.costmodel import get_cost_model as j_cost_model
     from poseidon_tpu.graph.instance import RoundPlanner as JPlanner
     from poseidon_tpu.graph.state import ClusterState as JState
@@ -257,10 +277,8 @@ def test_planner_coarse_wave_identical(slice_hatches):
             [(d.task_id, d.resource_id, int(d.type)) for d in td]
         for name in COUNTS:
             assert getattr(jm, name) == getattr(tm, name), name
-    # The contended wave went through the coarse [E, 256] aggregate solve.
-    routes = [k for k, n in T._Telemetry.routes.items()
-              if n > routes0.get(k, 0)]
-    assert any(m_pad == 256 for _, _, m_pad in routes), routes
+    return [k for k, n in T._Telemetry.routes.items()
+            if n > routes0.get(k, 0)]
 
 
 @pytest.mark.parametrize("host_cert", ["1", "0"])
@@ -394,3 +412,19 @@ def test_load_reference_checkpoint(slice_hatches, tmp_path):
     for name in COUNTS:
         assert getattr(jm, name) == getattr(tm, name), name
     assert tm.placed > 0
+
+
+def test_servers_start_fresh_on_an_unreadable_checkpoint(tmp_path):
+    """A checkpoint file that does not parse: both servicers log it and
+    start with an empty cluster instead of failing to start."""
+    from poseidon_tpu.service.server import FirmamentServicer as JServicer
+    from poseidon_tpu_torch.service.server import FirmamentServicer
+
+    path = tmp_path / "ckpt.json"
+    path.write_text("{not json")
+    js = JServicer(config=JConfig(checkpoint_path=str(path)))
+    ts = FirmamentServicer(FirmamentTPUConfig(device="cpu",
+                                              checkpoint_path=str(path)))
+    assert len(js.state.tasks) == len(ts.state.tasks) == 0
+    assert len(js.state.machines) == len(ts.state.machines) == 0
+    assert ts.planner.state is ts.state

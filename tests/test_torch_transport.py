@@ -2,7 +2,9 @@
 
 Same seeded numpy instances into both packages; every field of the result
 must be EQUAL (int32 throughout, exact tolerance): flows, unsched, prices,
-objective, gap_bound, iterations, bf_sweeps, phase_iters.  The JAX side
+objective, gap_bound, iterations, bf_sweeps, phase_iters, and the
+convergence-telemetry curve (both packages at their default, telemetry
+on; tests/test_torch_telemetry.py holds the rings themselves).  The JAX side
 runs its lax path (POSEIDON_FUSED=0, POSEIDON_TILED=0) or, for the kernel
 routes, its Pallas kernels in interpret mode (POSEIDON_FUSED=1 /
 POSEIDON_TILED=1, as its own kernel tests run them).  The port runs on the
@@ -47,6 +49,9 @@ def _assert_equal(a, b):
     np.testing.assert_array_equal(a.prices, b.prices)
     for name in FIELDS:
         assert getattr(a, name) == getattr(b, name), name
+    assert (a.telemetry is None) == (b.telemetry is None)
+    if a.telemetry is not None:
+        assert a.telemetry.digest() == b.telemetry.digest()
 
 
 def _new_routes(before):
@@ -58,7 +63,6 @@ def _new_routes(before):
 def lax_path(monkeypatch):
     monkeypatch.setenv("POSEIDON_FUSED", "0")
     monkeypatch.setenv("POSEIDON_TILED", "0")
-    monkeypatch.setenv("POSEIDON_SOLVE_TELEMETRY", "0")
 
 
 def _both(fn_name, *args, **kw):
@@ -135,7 +139,6 @@ def test_fused_route_vs_pallas_interpret(monkeypatch):
     """The port's fused route (its wrapper runs the plain ladder on CPU
     tensors) against the JAX fused Pallas kernel in interpret mode."""
     monkeypatch.setenv("POSEIDON_FUSED", "1")
-    monkeypatch.setenv("POSEIDON_SOLVE_TELEMETRY", "0")
     costs, supply, cap, unsched, arc = _instance(16, 64, 7, contended=True)
     assert J_fused.fits_vmem(16, 64) and T_fused.fits_vmem(16, 64)
     before = dict(T._Telemetry.routes)
@@ -211,7 +214,6 @@ def test_tiled_route_full_solve_vs_pallas_interpret(monkeypatch):
     monkeypatch.setenv("POSEIDON_TILED", "1")
     monkeypatch.setenv("POSEIDON_FUSED", "0")
     monkeypatch.setenv("POSEIDON_HOST_CERT", "0")
-    monkeypatch.setenv("POSEIDON_SOLVE_TELEMETRY", "0")
     monkeypatch.setattr(J_fused, "VMEM_ELEM_BUDGET", 1024)
     monkeypatch.setattr(T_fused, "VMEM_ELEM_BUDGET", 1024)
     J._solve_device_packed.clear_cache()
