@@ -8,10 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU::
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build: the three CUDA sources built with ``nvcc`` from ``ops/csrc``
+2. build: the four CUDA sources built with ``nvcc`` from ``ops/csrc``
    (one process each, all started together), their ``-Xptxas -v``
-   register and spill reports, and B1's shared-memory size checked
-   against its Python mirror;
+   register and spill reports, B1's shared-memory size checked against
+   its Python mirror, and the native graph core built with ``g++``;
 3. kernels: each kernel against its plain torch version on the card, at
    the main path's shapes (B1 also at its gate's two extremes, B2 also at
    a ragged shape and on a pruned plane's shortlist), with exact (zero)
@@ -27,42 +27,59 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    states covering its three exits and both launch plans (length tiles
    in shared memory, length planes in the workspace), with no host read,
    its ring marks equal to the plain update's, and its bound counted from
-   each input read once;
+   each input read once; the coarse program's disaggregation kernel
+   (F0 and fb0) at the wave's [128, 256 x 40], a ragged plane, a
+   pinned-scale reduced plane, B = 256 and many tied costs, with its
+   bound counted from the operations the function needs on this data
+   (member updates and a comparison sort's count); and the whole
+   coarse-to-fine program (B5) on a seeded [128, 10240] wave instance
+   against the plain pipeline forced, every field of the solution equal;
 4. main path: the port's gRPC server answers ``Schedule()`` for a
    10,000-machine / 100,000-pod cluster (one fresh wave, three churn
-   rounds) with the planner tiers and the convergence telemetry at their
-   defaults (pruned planes with the certificate cache, delta-maintained
-   cost planes, cross-band pipelining, overlapped assignment; the ring
-   on); every round must certify and logs its tier and telemetry counts,
-   each device solve's route and padded shape, and its stage split; the
-   same script with the plain versions forced must produce
-   byte-identical deltas and equal telemetry counts; one more fresh wave
-   with the telemetry off must produce the same deltas and host reads,
-   and its device time is printed beside the telemetry-on wave's; then
-   the dense path (the tiers off:
-   the wave and one churn round) with the kernels, whose wave must match
-   the main path's objective and placed count (plus a contended wave if
-   no path reached the per-iteration kernel).  Each path's kernel
-   launches are counted separately; every kernel of a route a path took
-   must have launched in it, and every kernel in some path; B2's route
-   on the wave must run the global-update kernel with no host read and
-   at most 3 CUDA kernels per iteration, and its split by stage is
-   printed;
+   rounds) with the planner tiers, the convergence telemetry, the fused
+   coarse program and the native graph core at their defaults (pruned
+   planes with the certificate cache, delta-maintained cost planes,
+   cross-band pipelining, overlapped assignment; the ring on); every
+   round must certify and logs its tier and telemetry counts, each
+   device solve's route and padded shape, what the coarse start did per
+   band, its seam and host reads, and its stage split; the wave's band 1
+   must run the fused program with one seam read, and every drive's
+   server must have the native core loaded (but the one that turns it
+   off); the same script with the plain versions forced (plain ladders
+   and plain scan) must produce byte-identical deltas and equal counts;
+   one fresh wave with ``POSEIDON_COARSE_FUSED=0`` (the host two-dispatch
+   coarse start) must match the main wave's objective and placed count
+   and write telemetry samples; that wave again with the telemetry off
+   must produce the same deltas and host reads, and its device time is
+   printed beside the ring-on wave's; one wave and one churn round with
+   the native core off must produce the main drive's deltas; then the
+   dense path (the tiers off: the wave and one churn round) with the
+   kernels, whose wave must match the main path's objective and placed
+   count (plus a contended wave if no path reached the per-iteration
+   kernel).  Each path's kernel launches are counted separately; every
+   kernel of a route a path took must have launched in it (the
+   disaggregation kernel wherever the fused program ran), and every
+   kernel in some path; B2's route on the wave must run the
+   global-update kernel with no host read and at most 3 CUDA kernels per
+   iteration, and its split by stage is printed;
 5. the kernels again at the main path's own wave solves (the captured
-   operands of its widest B1 and B2 solves), against their plain
-   versions, after the path's launches were read.
+   operands of its widest B2 solve and of its first disaggregation),
+   against their plain versions, after the path's launches were read.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--compare N`` prints,
 as JSON lines, one B2 iteration's device time at each B2 kernel case and
-then the per-iteration route's split of each of N fresh-wave drives (no
-churn, no plain run); run in two trees in turn, it compares them in one
-call.  ``--compare N ring`` turns the telemetry ring on and off between
-the drives (on, off, off, on, ...).
+then each round of N drives (a fresh wave and one churn round, no plain
+run) with its stages and the per-iteration route's split; run in two
+trees in turn, it compares them in one call.  ``--compare N ring`` (or
+``coarse``, ``native``) turns the telemetry ring (the fused coarse
+program, the native graph core) on and off between the drives (on, off,
+off, on, ...).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -158,12 +175,18 @@ def device_info() -> dict:
 # --------------------------------------------------------------- phase 2
 
 def build_kernels() -> float:
+    from poseidon_tpu_torch.native import bindings
     from poseidon_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
     _kernels.lib()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
+    t0 = time.perf_counter()
+    if not bindings.native_available():
+        fail(f"the native graph core did not build: {bindings.native_error()}")
+    log(f"  native graph core: {time.perf_counter() - t0:.2f} s (g++ "
+        f"{' '.join(bindings.GXX_FLAGS)}) -> {bindings.library_path().name}")
     for src in _kernels._SOURCES:
         for line in _kernels.ptxas_report(src).splitlines():
             if "registers" in line or "spill" in line:
@@ -771,6 +794,210 @@ def _pruned_case(E, M):
     return big, vec, scale
 
 
+# The int32 operations the disaggregation's function needs for each
+# (row, group) pair with coarse flow, whatever algorithm computes it: per
+# member, its key and caps (a compare, two selects, a min), its take (a
+# subtract, a min, a max), the capacity update and its share of the scan
+# (an add each way); and the stable ordering of the B members, B *
+# ceil(log2 B) comparisons (a comparison sort's count).  The kernel's own
+# O(B^2) rank is its choice, not the function's need, so it is not
+# counted.
+OPS_PER_MEMBER_DISAGG = 10
+
+
+def disagg_ops(pairs: int, B: int) -> int:
+    return pairs * B * (OPS_PER_MEMBER_DISAGG + max(B - 1, 0).bit_length())
+
+
+def _disagg_case(E, K, B, seed, *, m_live=None, ties=False, inadm=0.1,
+                 fc_hi=60, fc_zero=0.6):
+    """One disaggregation input at [E, K * B]: a padded plane (dead
+    columns past ``m_live``: INF cost, zero capacity), its column sort as
+    the program computes it, and a coarse flow of the given sparsity."""
+    from poseidon_tpu_torch.ops import transport as T
+
+    rng = np.random.default_rng(seed)
+    M2 = K * B
+    m_live = M2 if m_live is None else m_live
+    costs = np.full((E, M2), T.INF_COST, dtype=np.int32)
+    costs[:, :m_live] = rng.integers(0, 4 if ties else 1000,
+                                     size=(E, m_live))
+    live = costs[:, :m_live]
+    live[rng.random((E, m_live)) < inadm] = T.INF_COST
+    arc = np.zeros((E, M2), dtype=np.int32)
+    arc[:, :m_live] = rng.integers(1, 64, size=(E, m_live))
+    cap = np.zeros(M2, dtype=np.int32)
+    cap[:m_live] = rng.integers(1, 12, size=m_live)
+    Fc = rng.integers(0, fc_hi, size=(E, K)).astype(np.int32)
+    Fc[rng.random((E, K)) < fc_zero] = 0
+    perm = T.coarse_sort_order(costs).astype(np.int32)
+    return dict(costs=costs, arc=arc, cap=cap, Fc=Fc, perm=perm,
+                inv_perm=np.argsort(perm).astype(np.int32),
+                supply=(Fc.sum(1) + rng.integers(0, 50, size=E)).astype(
+                    np.int32), K=K, B=B)
+
+
+def disagg_cases():
+    """The wave's [128, 256 x 40]; a ragged plane (10,000 live columns in
+    200 groups of 52: M2 = 10,400 past the padded 10,240); a pinned-scale
+    reduced plane [32, 2560]; B = 256 at [64, 65536]; many tied costs
+    with 30% inadmissible members."""
+    return [
+        ("wave", _disagg_case(128, 256, 40, SEED)),
+        ("ragged", _disagg_case(100, 200, 52, SEED + 1, m_live=10_000)),
+        ("pruned plane", _disagg_case(32, 256, 10, SEED + 2)),
+        ("B=256", _disagg_case(64, 256, 256, SEED + 3, fc_hi=400)),
+        ("ties", _disagg_case(128, 256, 40, SEED + 4, ties=True, inadm=0.3)),
+    ]
+
+
+def check_coarse_disaggregate(cases) -> list:
+    """The disaggregation kernel against the plain scan on the card: F0
+    and fb0 bit-equal, timed with CUDA events beside the plain scan and
+    the bound (costs, arc, cap, perm, Fc and the supply read once, F0 and
+    fb0 written once; the operations the function needs on this data:
+    the member updates and a comparison sort's B * ceil(log2 B)
+    comparisons for each (row, group) pair with coarse flow,
+    ``disagg_ops``)."""
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    rows = []
+    for label, d in cases:
+        t = {k: torch.from_numpy(np.ascontiguousarray(d[k])).to(DEVICE)
+             for k in ("costs", "arc", "cap", "Fc", "perm", "inv_perm",
+                       "supply")}
+        args = (t["costs"], t["arc"], t["cap"], t["Fc"], t["perm"],
+                t["inv_perm"], t["supply"])
+        kw = dict(groups=d["K"], block=d["B"])
+        a = TC.coarse_disaggregate(*args, **kw)
+        b = TC.disaggregate_plain(*args, **kw)
+        err = _max_err([x.cpu().numpy() for x in a],
+                       [x.cpu().numpy() for x in b])
+        ms = _time_cuda(lambda: TC.coarse_disaggregate(*args, **kw), 10)
+        plain_ms = _time_cuda(lambda: TC.disaggregate_plain(*args, **kw), 1)
+        E, M2 = d["costs"].shape
+        K, B = d["K"], d["B"]
+        pairs = int((d["Fc"] > 0).sum())
+        nbytes = 4 * (3 * E * M2 + 2 * M2 + E * K + 2 * E)
+        ops = disagg_ops(pairs, B)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        rows.append(dict(shape=[E, M2], label=f"{label} K {K} B {B}",
+                         err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                         ops=ops, pairs=pairs))
+        log(f"  disaggregation {label} [{E}, {K} x {B}]: max_abs_err {err} "
+            f"(F0, fb0), {pairs} (row, group) pairs with flow; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+            f"({ms / bound:.1f}x)")
+        if err != 0:
+            fail(f"the disaggregation kernel differs from the plain scan at "
+                 f"{label}")
+        if not bool(a[0].any()):
+            fail(f"the disaggregation case {label} handed out no flow")
+    return rows
+
+
+def _coarse_instance():
+    """A seeded contended [128, 10240] wave instance for the coarse
+    program (supply past capacity, so the greedy start does not
+    certify)."""
+    return _instance(128, 10240, SEED + 5, supply_lo=500, supply_hi=1500,
+                     cap_lo=4, cap_hi=12)
+
+
+SOLUTION_FIELDS = ("objective", "gap_bound", "iterations", "bf_sweeps",
+                   "phase_iters", "entry_phase", "eps_certified")
+
+
+# Bindings the plain and native-off drives replace, as the process found
+# them (``_swap(owner, name, None)`` puts one back).
+_ORIGINALS = {}
+
+
+def _swap(owner, name, value) -> None:
+    """Bind ``owner.name`` to ``value``, or with ``None`` back to what it
+    was before its first swap."""
+    _ORIGINALS.setdefault((owner, name), getattr(owner, name))
+    setattr(owner, name, _ORIGINALS[(owner, name)] if value is None
+            else value)
+
+
+def _set_plain_pipeline(plain: bool) -> None:
+    """The plain ladders and the plain disaggregation scan forced, or
+    every route at its default.  The ladders have their hatches; the scan
+    has none, so the program's binding of the kernel's wrapper is swapped
+    for the plain scan (looked up at each call, so a spy on it sees the
+    call)."""
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    for k in ("POSEIDON_FUSED", "POSEIDON_TILED"):
+        _set_env(k, "0" if plain else None)
+
+    def plain_scan(*a, **k):
+        return TC.disaggregate_plain(*a, **k)
+
+    _swap(TC, "coarse_disaggregate", plain_scan if plain else None)
+
+
+def _set_native(on: bool) -> None:
+    """``ClusterState`` at its default (the native graph core), or every
+    state built while off with the reference's ``use_native=False``."""
+    from poseidon_tpu_torch.graph.state import ClusterState
+
+    init = _ORIGINALS.get((ClusterState, "__init__"), ClusterState.__init__)
+
+    def python_view(self, use_native=True):
+        init(self, use_native=False)
+
+    _swap(ClusterState, "__init__", None if on else python_view)
+
+
+def check_coarse_program() -> dict:
+    """The whole coarse-to-fine program (B5) on the card against the
+    plain pipeline forced (plain ladders, plain scan) on a seeded [128,
+    10240] wave instance: every field of the solution bit-equal."""
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    costs, supply, cap, unsched, arc = _coarse_instance()
+    out = {}
+    for mode in ("kernels", "plain"):
+        _set_plain_pipeline(mode == "plain")
+        _kernels.reset_launches()
+        routes0 = dict(T._Telemetry.routes)
+        t0 = time.perf_counter()
+        sol = TC.solve_transport_coarse_fused(
+            costs, supply, cap, unsched, arc_capacity=arc,
+            max_cost_hint=8000, max_iter_total=8192, device=DEVICE)
+        secs = time.perf_counter() - t0
+        if sol is None:
+            fail(f"the coarse program declined the seeded wave ({mode})")
+        routes = {f"{k[0]}[{k[1]}, {k[2]}]": n - routes0.get(k, 0)
+                  for k, n in T._Telemetry.routes.items()
+                  if n > routes0.get(k, 0)}
+        out[mode] = dict(sol=sol, secs=secs, routes=routes,
+                         launches=dict(_kernels.LAUNCHES))
+    _set_plain_pipeline(False)
+    k, p = out["kernels"], out["plain"]
+    err = _max_err([k["sol"].flows, k["sol"].unsched, k["sol"].prices],
+                   [p["sol"].flows, p["sol"].unsched, p["sol"].prices])
+    diff = [f for f in SOLUTION_FIELDS
+            if getattr(k["sol"], f) != getattr(p["sol"], f)]
+    log(f"  B5 {list(costs.shape)}: kernels {k['secs']:.3f} s ({k['routes']}, "
+        f"launches {k['launches']}), plain pipeline {p['secs']:.3f} s "
+        f"({p['routes']}); iterations {k['sol'].iterations}, phase "
+        f"{k['sol'].phase_iters}, gap {k['sol'].gap_bound}, max_abs_err "
+        f"{err}, fields differing {diff}")
+    if err or diff:
+        fail("the coarse program differs from the plain pipeline")
+    if k["sol"].gap_bound != 0.0:
+        fail("the coarse program's solution is not certified")
+    if not k["launches"]["coarse_disaggregate"] or any(p["launches"].values()):
+        fail(f"launches: kernels {k['launches']}, plain {p['launches']}")
+    return {"kernels_s": k["secs"], "plain_s": p["secs"],
+            "iterations": k["sol"].iterations, "routes": k["routes"]}
+
+
 def kernel_phase():
     fused_cases, tiled_cases, gu_cases = kernel_cases()
     log("kernels: B1 fused ladder vs plain ladder")
@@ -784,7 +1011,11 @@ def kernel_phase():
     if DEVICE.type == "cuda" and plans != {0, 1}:
         fail(f"the global-update cases took plans {sorted(plans)}: both "
              "the shared-memory and the workspace plan must run")
-    return fused, tiled, gu, l2_rate
+    log("kernels: coarse disaggregation kernel vs plain scan")
+    disagg = check_coarse_disaggregate(disagg_cases())
+    log("kernels: the coarse-to-fine program (B5) vs the plain pipeline")
+    program = check_coarse_program()
+    return fused, tiled, gu, disagg, program, l2_rate
 
 
 # --------------------------------------------------------------- phase 4
@@ -944,16 +1175,144 @@ def load_cluster(label, nodes, tasks):
     return path
 
 
-def drive(label, ckpt, tasks, churn_rounds, capture=None):
+def _pack_route_args(args, kw):
+    """A ladder's device operands (``transport.solve_route``'s) as the
+    packed host arrays ``_solve_device_packed`` takes: (big, vec, scale)."""
+    (costs, supply, capacity, unsched, arc, prices, flows, fb, eps_sched,
+     max_iter_total, global_every, bf_max, adaptive_bf) = args
+    big = np.stack([t.cpu().numpy() for t in (costs, arc, flows)])
+    vec = np.concatenate(
+        [t.cpu().numpy() for t in (supply, capacity, unsched, prices, fb)]
+        + [np.asarray(list(eps_sched), np.int32),
+           np.asarray([max_iter_total, global_every, bf_max, adaptive_bf],
+                      np.int32)]).astype(np.int32)
+    return big, vec, int(kw["scale"])
+
+
+class _CoarseWatch:
+    """Spies on the planner's coarse start for one drive: per band, what
+    the coarse start did (the fused program ran, or declined and why, as
+    the program records it in ``_Telemetry.coarse_outcomes``; or the
+    host path, or none), the seam reads (the program's 4-int read between
+    its two ladders) and, with ``capture``, every ladder's operands (the
+    program's two and any through ``transport._solve_device_packed``) and
+    the inputs of the first plain disaggregation scan (capture runs in
+    the plain drive, whose operands are the kernel drive's bits)."""
+
+    def __init__(self):
+        from poseidon_tpu_torch.graph import instance as PI
+        from poseidon_tpu_torch.ops import transport as T
+        from poseidon_tpu_torch.ops import transport_coarse as TC
+
+        self.PI, self.T, self.TC = PI, T, TC
+        self.real = dict(pre=PI.coarse_precheck,
+                         fused=PI.solve_transport_coarse_fused,
+                         read=TC._host_read, route=T.solve_route,
+                         plain=TC.disaggregate_plain)
+        self.events, self.seam_reads = [], 0
+        self.capture = self.seam = None
+
+    def _bind(self, pre, fused, read, route, plain):
+        PI, T, TC = self.PI, self.T, self.TC
+        PI.coarse_precheck, PI.solve_transport_coarse_fused = pre, fused
+        TC._host_read, TC.disaggregate_plain = read, plain
+        T.solve_route = TC.solve_route = route
+
+    def __enter__(self):
+        real, T = self.real, self.T
+
+        def pre(*a, **k):
+            out = real["pre"](*a, **k)
+            self.events.append(
+                "no coarse start (too small or thin)" if out is None
+                else "no coarse start (the greedy start certifies)"
+                if out["certified"] else "host two-dispatch coarse start")
+            return out
+
+        def fused(*a, **k):
+            n0 = Counter(T._Telemetry.coarse_outcomes)
+            sol = real["fused"](*a, **k)
+            what = list((T._Telemetry.coarse_outcomes - n0).elements())
+            self.events[-1] = "; ".join(f"fused program {w}" for w in what)
+            return sol
+
+        def read(t):
+            if tuple(t.shape) == (4,):
+                self.seam_reads += 1
+            return real["read"](t)
+
+        def route(impl, *args, **kw):
+            if self.capture is not None:
+                self.capture.append(_pack_route_args(args, kw))
+            return real["route"](impl, *args, **kw)
+
+        def plain(*args, **kw):
+            if self.capture is not None and self.seam is None:
+                self.seam = dict(zip(
+                    ("costs", "arc", "cap", "Fc", "perm", "inv_perm",
+                     "supply"), (t.cpu().numpy() for t in args)))
+                self.seam.update(K=kw["groups"], B=kw["block"])
+            return real["plain"](*args, **kw)
+
+        self._bind(pre, fused, read, route, plain)
+        return self
+
+    def __exit__(self, *exc):
+        r = self.real
+        self._bind(r["pre"], r["fused"], r["read"], r["route"], r["plain"])
+
+    def take(self):
+        out = (list(self.events), self.seam_reads)
+        self.events, self.seam_reads = [], 0
+        return out
+
+
+class _GcClock:
+    """The collector's pauses (``gc.callbacks``): their seconds summed,
+    the longest and the count of full (generation 2) collections since the
+    last ``take``."""
+
+    def __init__(self):
+        self.t0, self.total, self.longest, self.full = None, 0.0, 0.0, 0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self.t0 = time.perf_counter()
+        elif self.t0 is not None:
+            d = time.perf_counter() - self.t0
+            self.total += d
+            self.longest = max(self.longest, d)
+            self.full += info.get("generation") == 2
+            self.t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+    def take(self):
+        out = {"gc_s": self.total, "gc_longest_s": self.longest,
+               "gc_full": self.full}
+        self.total, self.longest, self.full = 0.0, 0.0, 0
+        return out
+
+
+def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True):
     """Start the port's server from the cluster checkpoint ``ckpt``
     (``load_cluster``), run a fresh wave and ``churn_rounds`` churn
     rounds over gRPC (each removing and resubmitting 1% of ``tasks``).
     Returns per-round records (serialized deltas, metrics with the
     planner tiers' counts, wall seconds, launches, host reads, each
-    device solve's route and padded shape, and B2's route split by
-    stage).  ``capture``, a list, receives the packed operands of the
-    wave's device solves, for the kernels to be held against their plain
-    versions at those shapes afterwards."""
+    device solve's route and padded shape, what the coarse start did per
+    band, the seam reads, the collector's pauses, and B2's route split by
+    stage).  The server's
+    state must have the native graph core loaded, or not, as ``native``
+    says.  ``capture``, a dict, receives the wave's ladder operands
+    (``"solves"``: packed ``(big, vec, scale)``) and the inputs of its
+    first disaggregation (``"seam"``), for the kernels to be held against
+    their plain versions there afterwards."""
     from poseidon_tpu_torch.ops import _kernels
     from poseidon_tpu_torch.ops import transport as T
     from poseidon_tpu_torch.protos import firmament_pb2 as fpb
@@ -972,13 +1331,18 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
                              checkpoint_path=str(ckpt))
     t0 = time.perf_counter()
     with FirmamentTPUServer(cfg, address="127.0.0.1:0") as srv, \
-            _channel(srv) as ch:
+            _channel(srv) as ch, _CoarseWatch() as watch, \
+            _GcClock() as gcc:
         stubs = make_stubs(ch, FIRMAMENT_SERVICE, FIRMAMENT_METHODS)
         srv.servicer.ensure_precompiled()
         st = srv.servicer.state
         log(f"  [{label}] server restored {len(st.machines)} machines, "
             f"{len(st.tasks)} pods from the checkpoint in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s; native graph core "
+            f"{'loaded' if st.native_loaded else 'not loaded'}")
+        if st.native_loaded != native:
+            fail(f"[{label}] the native graph core is "
+                 f"{'' if st.native_loaded else 'not '}loaded")
         live = list(tasks)
         for r in range(churn_rounds + 1):
             if r > 0:  # churn: remove and resubmit 1% of the pods
@@ -991,28 +1355,27 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
                       fpb.TASK_SUBMITTED_OK)
             _kernels.reset_launches()
             stagetimer.reset()
+            watch.take()
+            gcc.take()
             reads0 = T.host_read_count()
             routes0 = dict(T._Telemetry.routes)
             split0 = (Counter(T._Telemetry.stage_reads),
                       Counter(T._Telemetry.route_iters),
                       Counter(T._Telemetry.route_sweeps))
             k0 = _b2_kernel_count()
-            packed = T._solve_device_packed
             if capture is not None and r == 0:
-                def spy(big, vec, **kw):
-                    capture.append((kw["impl"], big.copy(), vec.copy(),
-                                    kw["scale"]))
-                    return packed(big, vec, **kw)
-
-                T._solve_device_packed = spy
+                watch.capture = []
             t0 = time.perf_counter()
-            try:
-                out = stubs.Schedule(fpb.ScheduleRequest())
-            finally:
-                T._solve_device_packed = packed
+            out = stubs.Schedule(fpb.ScheduleRequest())
             wall = time.perf_counter() - t0
             k1 = _b2_kernel_count()
+            if watch.capture is not None:
+                capture["solves"], capture["seam"] = watch.capture, watch.seam
+                watch.capture = None
+            coarse, seam_reads = watch.take()
+            gc_pauses = gcc.take()
             m = srv.servicer.planner.last_metrics
+            stages = {k: v[0] for k, v in stagetimer.snapshot().items()}
             rec = dict(
                 kind="wave" if r == 0 else f"churn{r}",
                 deltas=out.SerializeToString(), wall_s=wall,
@@ -1022,12 +1385,13 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
                 converged=m.converged, device_calls=m.device_calls,
                 launches=dict(_kernels.LAUNCHES),
                 host_reads=T.host_read_count() - reads0,
+                seam_reads=seam_reads, coarse=coarse, gc=gc_pauses,
                 routes={f"{k[0]}[{k[1]}, {k[2]}]": n - routes0.get(k, 0)
                         for k, n in sorted(T._Telemetry.routes.items())
                         if n > routes0.get(k, 0)},
                 tiers={f: getattr(m, f) for f in TIER_FIELDS},
                 telem={f: getattr(m, f) for f in TELEM_FIELDS},
-                stages={k: v[0] for k, v in stagetimer.snapshot().items()},
+                stages=stages,
                 split=route_split(*split0),
                 b2_kernels=None if k0 is None else k1 - k0,
             )
@@ -1036,9 +1400,13 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
                 f"{m.placed}, unscheduled {m.unscheduled}, objective "
                 f"{m.objective}, iterations {m.iterations}, bf "
                 f"{m.bf_sweeps}, device solves {m.device_calls}, launches "
-                f"{rec['launches']}, host reads {rec['host_reads']}, gap "
-                f"{m.gap_bound}, solves by route [E_pad, M_pad] "
-                f"{rec['routes']}")
+                f"{rec['launches']}, host reads {rec['host_reads']} (seam "
+                f"reads {seam_reads}), gap {m.gap_bound}, solves by route "
+                f"[E_pad, M_pad] {rec['routes']}")
+            log(f"    coarse start by band: {coarse or 'none attempted'}; "
+                f"round.view_build {stages.get('round.view_build', 0.0):.4f}"
+                f" s, round.assign {stages.get('round.assign', 0.0):.4f} s;"
+                f" collector {json.dumps(gc_pauses)}")
             log(f"    tiers: {json.dumps(rec['tiers'])}")
             log(f"    telemetry: {json.dumps(rec['telem'])}")
             log("    stages (s): " + ", ".join(
@@ -1052,35 +1420,43 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None):
     return rounds
 
 
-def _set_plain(plain: bool) -> None:
-    for k in ("POSEIDON_FUSED", "POSEIDON_TILED"):
-        if plain:
-            os.environ[k] = "0"
-        else:
-            os.environ.pop(k, None)
+# The hatches as the process found them: ``_set_env(name, None)`` returns
+# a hatch to this value (unset on the card, where every default holds).
+ENV0 = dict(os.environ)
+
+
+def _set_env(name: str, value) -> None:
+    """Set a hatch, or with ``None`` return it to the value the process
+    started with."""
+    if value is None:
+        value = ENV0.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
 
 
 def _set_telemetry(on: bool) -> None:
     """The convergence-telemetry ring at its default (on), or off."""
-    if on:
-        os.environ.pop("POSEIDON_SOLVE_TELEMETRY", None)
-    else:
-        os.environ["POSEIDON_SOLVE_TELEMETRY"] = "0"
+    _set_env("POSEIDON_SOLVE_TELEMETRY", None if on else "0")
 
 
 def _set_tiers(on: bool) -> None:
     """The planner tiers at their defaults (on), or each turned off."""
     for k in TIER_HATCHES:
-        if on:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = "0"
+        _set_env(k, None if on else "0")
 
 
-KERNEL_NAMES = ("fused_ladder", "tiled_iteration", "global_update")
+KERNEL_NAMES = ("fused_ladder", "tiled_iteration", "global_update",
+                "coarse_disaggregate")
 # The kernels a solve route launches.
 ROUTE_KERNELS = {"fused": ("fused_ladder",),
                  "tiled": ("tiled_iteration", "global_update")}
+# Per-round counts that must agree between two drives of the same path
+# (and the solves' routes, where both drives run the kernels).
+ROUND_COUNTS = ("placed", "unscheduled", "objective", "iterations",
+                "bf_sweeps", "device_calls", "seam_reads", "coarse",
+                "tiers", "telem")
 
 
 def _path_launches(rounds) -> dict:
@@ -1089,7 +1465,8 @@ def _path_launches(rounds) -> dict:
 
 def _check_path(name, rounds) -> None:
     """Every kernel of the routes this path's solves took was launched,
-    and counted, in this path's run."""
+    and counted, in this path's run; so was the disaggregation kernel
+    wherever the fused coarse program ran."""
     launched = _path_launches(rounds)
     for r in rounds:
         for route in r["routes"]:
@@ -1097,17 +1474,48 @@ def _check_path(name, rounds) -> None:
                 if launched[k] == 0:
                     fail(f"[{name}] {r['kind']} solved on {route} but "
                          f"{k} was never launched")
+        if "fused program ran" in r["coarse"] and \
+                r["launches"]["coarse_disaggregate"] == 0:
+            fail(f"[{name}] {r['kind']}: the fused coarse program ran but "
+                 "the disaggregation kernel was never launched")
+
+
+def _counts(rec, counts):
+    """A round's counts, without the tiers' one timing
+    (``pipeline_overlap_s``)."""
+    out = {c: rec[c] for c in counts}
+    if "tiers" in out:
+        out["tiers"] = {k: v for k, v in out["tiers"].items()
+                        if k != "pipeline_overlap_s"}
+    return out
+
+
+def _same_rounds(name, a_rounds, b_rounds, counts=ROUND_COUNTS) -> None:
+    """Two drives' rounds: byte-identical deltas and equal counts."""
+    for a, b in zip(a_rounds, b_rounds):
+        if a["deltas"] != b["deltas"]:
+            fail(f"[{name}] {a['kind']}: deltas differ")
+        ca, cb = _counts(a, counts), _counts(b, counts)
+        diff = {c: (ca[c], cb[c]) for c in counts if ca[c] != cb[c]}
+        if diff:
+            fail(f"[{name}] {a['kind']}: counts differ: {diff}")
 
 
 def main_path(capture):
-    """The main path — the planner tiers at their defaults — with the
-    kernels, then again with the plain versions forced (the deltas must
-    match byte for byte, and the telemetry counts); its wave again with
-    the telemetry off (the same deltas and host reads; ``ring_cost``
-    holds the two waves' device and wall seconds); then the dense path,
+    """The main path — the planner tiers, the telemetry ring, the fused
+    coarse program and the native graph core at their defaults — with the
+    kernels, then again with the plain versions forced (plain ladders and
+    plain scan; the deltas must match byte for byte, and the counts);
+    one wave with ``POSEIDON_COARSE_FUSED=0`` (the host two-dispatch
+    coarse start: the same objective and placed count, and the wave's
+    telemetry samples), and that wave again with the telemetry off (the
+    same deltas and host reads; ``ring_cost`` holds the two waves' device
+    and wall seconds); one wave and one churn round with the native core
+    off (deltas byte-identical to the main drive's); then the dense path,
     the tiers off, with the kernels.  Where the paths' waves never
     reached the per-iteration kernel, a contended wave stands in for it.
-    ``capture`` receives the main path's wave solves (see ``drive``)."""
+    ``capture`` receives the main path's wave solves (see ``drive``),
+    taken in the plain run, whose operands are the same bits."""
     from poseidon_tpu_torch.utils import stagetimer
 
     nodes, tasks = _population()
@@ -1115,37 +1523,54 @@ def main_path(capture):
     del nodes
     results = {}
     _set_tiers(True)
-    _set_plain(False)
-    log("main path (tiers on): wave, kernels")
+    _set_plain_pipeline(False)
+    log("main path (defaults): wave, kernels")
     stagetimer.set_device_timing(True)
-    kern = drive("tiers-on", ckpt, tasks, CHURN_ROUNDS, capture=capture)
+    kern = drive("main", ckpt, tasks, CHURN_ROUNDS)
     stagetimer.set_device_timing(False)
-    _check_path("tiers-on", kern)
-    _set_plain(True)
-    log("main path (tiers on): wave, plain versions forced")
-    plain = drive("tiers-on", ckpt, tasks, CHURN_ROUNDS)
-    _set_plain(False)
-    for a, b in zip(kern, plain):
-        if a["deltas"] != b["deltas"]:
-            fail(f"[tiers-on] {a['kind']}: deltas differ between the "
-                 "kernel and plain runs")
-        if a["telem"] != b["telem"]:
-            fail(f"[tiers-on] {a['kind']}: telemetry counts differ between "
-                 f"the kernel and plain runs: {a['telem']} vs {b['telem']}")
-    if not kern[0]["telem"]["telem_samples"]:
-        fail("[tiers-on] the wave captured no telemetry sample")
-    log(f"  [tiers-on] deltas byte-identical and telemetry counts equal to "
-        f"the plain run over {len(kern)} rounds")
-    results["tiers_on"] = kern
+    _check_path("main", kern)
+    _set_plain_pipeline(True)
+    log("main path (defaults): wave, plain versions forced")
+    plain = drive("main-plain", ckpt, tasks, CHURN_ROUNDS, capture=capture)
+    _set_plain_pipeline(False)
+    _same_rounds("main", kern, plain)
+    if any(any(r["launches"].values()) for r in plain):
+        fail("the plain run launched a kernel")
+    wave = kern[0]
+    if wave["coarse"][:1] != ["fused program ran"] or \
+            wave["seam_reads"] != 1:
+        fail(f"the wave's band 1 did not run the fused coarse program with "
+             f"one seam read: {wave['coarse']}, {wave['seam_reads']}")
+    log(f"  [main] deltas byte-identical and counts equal to the plain run "
+        f"over {len(kern)} rounds; the wave's coarse start: "
+        f"{wave['coarse']}, {wave['seam_reads']} seam read")
+    results["main"] = kern
+
+    _set_env("POSEIDON_COARSE_FUSED", "0")
+    log("coarse fused off: wave, kernels")
+    stagetimer.set_device_timing(True)
+    twod = drive("coarse-fused-off", ckpt, tasks, 0)
+    stagetimer.set_device_timing(False)
+    _check_path("coarse-fused-off", twod)
+    if (twod[0]["objective"], twod[0]["placed"]) != \
+            (wave["objective"], wave["placed"]):
+        fail("the fused and two-dispatch coarse waves differ in objective "
+             "or placed count")
+    if not twod[0]["telem"]["telem_samples"]:
+        fail("[coarse-fused-off] the wave captured no telemetry sample")
+    if twod[0]["seam_reads"] or "fused program ran" in twod[0]["coarse"]:
+        fail("[coarse-fused-off] the fused coarse program ran")
+    results["coarse_fused_off"] = twod
 
     _set_telemetry(False)
-    log("main path (tiers on): wave, kernels, telemetry off")
+    log("coarse fused off: wave, kernels, telemetry off")
     stagetimer.set_device_timing(True)
     off = drive("telemetry-off", ckpt, tasks, 0)
     stagetimer.set_device_timing(False)
     _set_telemetry(True)
+    _set_env("POSEIDON_COARSE_FUSED", None)
     _check_path("telemetry-off", off)
-    w_on, w_off = kern[0], off[0]
+    w_on, w_off = twod[0], off[0]
     if w_on["deltas"] != w_off["deltas"]:
         fail("the wave's deltas differ with the telemetry on and off")
     if w_on["host_reads"] != w_off["host_reads"]:
@@ -1167,9 +1592,21 @@ def main_path(capture):
         "wall_s": [w_on["wall_s"], w_off["wall_s"]],
         "host_reads": [w_on["host_reads"], w_off["host_reads"]],
     }
-    log("  the wave with the telemetry on / off (same deltas): "
-        + json.dumps(ring_cost))
+    log("  the two-dispatch wave with the telemetry on / off (same "
+        "deltas): " + json.dumps(ring_cost))
     results["telemetry_off"] = off
+
+    _set_native(False)
+    log("native graph core off: wave and one churn round, kernels")
+    nat = drive("native-off", ckpt, tasks, 1, native=False)
+    _set_native(True)
+    _check_path("native-off", nat)
+    _same_rounds("native-off", kern, nat, ROUND_COUNTS + ("routes",))
+    log("  [native-off] deltas byte-identical to the main drive's; "
+        "round.view_build core on / off: " + json.dumps(
+            [[r["stages"].get("round.view_build") for r in rs[:2]]
+             for rs in (kern, nat)]))
+    results["native_off"] = nat
 
     _set_tiers(False)
     log("dense path (tiers off): wave, kernels")
@@ -1200,6 +1637,8 @@ def main_path(capture):
     log(f"  launches by path: {json.dumps(launches)}")
     if kern[0]["launches"]["fused_ladder"] == 0:
         fail("the fresh wave launched no fused ladder kernel")
+    if kern[0]["launches"]["coarse_disaggregate"] == 0:
+        fail("the fresh wave launched no disaggregation kernel")
     for k in KERNEL_NAMES:
         if not any(n[k] for n in launches.values()):
             fail(f"no path launched {k}")
@@ -1226,27 +1665,33 @@ def main_path(capture):
 
 
 def main_path_cases(capture):
-    """The main path's own wave solves, as kernel cases: each route's
-    widest solve other than the coarse [E, 256] start (a kernel case of
-    its own)."""
+    """The main path's own wave solves, as kernel cases: the widest solve
+    each kernel route takes other than the coarse [E, 256] start (a kernel
+    case of its own), and the wave's first disaggregation."""
+    from poseidon_tpu_torch.ops import transport as T
+
     best = {}
-    for impl, big, vec, scale in capture:
+    for big, vec, scale in capture.get("solves") or []:
         E, M = big.shape[1:]
+        impl = T.route_for(E, M, DEVICE)
         if impl == "lax" or M == 256:
             continue
         if impl not in best or M > best[impl][1].shape[2]:
             best[impl] = ("main-path wave", big, vec, scale)
+    if capture.get("seam") is not None:
+        best["disagg"] = ("main-path wave seam", capture["seam"])
     return best
 
 
-def kernels_record(fused, tiled, gu, launches):
+def kernels_record(fused, tiled, gu, disagg, launches):
     """The kernels line.  ``launches`` is ``{path: {kernel: n}}``, each
     path's count read just after its own drive; a row's ``launches`` is
-    their sum over the paths, ``launches_by_path`` the split.  Every
-    kernel carries the convergence-telemetry ring (B1 and B2 write the
+    their sum over the paths, ``launches_by_path`` the split.  The ladder
+    kernels carry the convergence-telemetry ring (B1 and B2 write the
     samples, the global update its fired bit and sweeps); ``ms`` is with
-    the ring, ``ms_ring_off`` without it, where timed."""
-    def row(name, source, replaces, unit, cases, n):
+    the ring, ``ms_ring_off`` without it, where timed.  The
+    disaggregation kernel has no ring."""
+    def row(name, source, replaces, unit, cases, n, ring=True):
         lead = cases[0]
         bound_bytes = lead["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_ops = lead["ops"] / INT32_OPS_PER_S * 1e3
@@ -1258,7 +1703,7 @@ def kernels_record(fused, tiled, gu, launches):
             "launch_unit": unit,
             "max_abs_err": max(c["err"] for c in cases),
             "equal": all(c["err"] == 0 for c in cases),
-            "telemetry_ring": True,
+            "telemetry_ring": ring,
             "ms": lead["ms"], "ms_ring_off": lead.get("ms_ring_off"),
             "plain_ms": lead["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
@@ -1269,7 +1714,8 @@ def kernels_record(fused, tiled, gu, launches):
                                          "one_sm_floor_ms", "host_ms",
                                          "kernels_per_iteration", "sweeps",
                                          "plan", "solve_ms",
-                                         "solve_ms_ring_off", "host_reads")
+                                         "solve_ms_ring_off", "host_reads",
+                                         "pairs")
                        if k in c}
                       | {"bound_ms": max(c["bytes"] / HBM_BYTES_PER_S,
                                          c["ops"] / INT32_OPS_PER_S) * 1e3}
@@ -1291,18 +1737,33 @@ def kernels_record(fused, tiled, gu, launches):
             "poseidon_tpu/ops/transport.py:548",
             "one cooperative launch: a whole global update", gu,
             "global_update"),
+        row("coarse_disaggregate",
+            "poseidon_tpu_torch/ops/csrc/coarse_disaggregate.cu",
+            "poseidon_tpu/ops/transport_coarse.py:226",
+            "one launch: the coarse program's whole disaggregation, one "
+            "block per column group", disagg, "coarse_disaggregate",
+            ring=False),
     ]}
 
 
 # --------------------------------------------------------------- main
 
-def compare(runs: int, ring_turns: bool = False) -> int:
+# ``--compare N <name>`` turns one default on and off between the drives:
+# a hatch, or the state's native core.
+COMPARE_HATCHES = {"ring": "POSEIDON_SOLVE_TELEMETRY",
+                   "coarse": "POSEIDON_COARSE_FUSED"}
+COMPARE_TOGGLES = tuple(COMPARE_HATCHES) + ("native",)
+
+
+def compare(runs: int, toggle=None) -> int:
     """``--compare N``: one B2 iteration's device time at each B2 kernel
-    case (``_time_b2``), then N fresh-wave drives with the kernels (no
-    churn, no plain run), each printed as a JSON line with B2's route
-    split; run in two trees in turn to compare them in one call.
-    ``--compare N ring`` turns the telemetry ring on and off between the
-    drives (on, off, off, on, ...), to compare the two in one process."""
+    case (``_time_b2``), then N drives with the kernels (a fresh wave and
+    one churn round, no plain run), each round printed as a JSON line
+    with its wall, stages and B2's route split; run in two trees in turn
+    to compare them in one call.  ``--compare N ring`` (or ``coarse``,
+    ``native``) turns the telemetry ring (the fused coarse program, the
+    native graph core) on and off between the drives (on, off, off, on,
+    ...), to compare the two in one process."""
     from poseidon_tpu_torch.ops.transport_tiled import TiledIteration
     from poseidon_tpu_torch.utils import stagetimer
 
@@ -1321,28 +1782,49 @@ def compare(runs: int, ring_turns: bool = False) -> int:
                      cap_hi=6)
     for impl in ("fused", "tiled"):
         _run_route(*_pack(*inst), impl)
+    # The disaggregation kernel's first launch in a process loads its
+    # module (26-27 ms of host time on the H100's host).
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    d = _disagg_case(8, 16, 4, SEED)
+    TC.coarse_disaggregate(
+        *(torch.from_numpy(d[k]).to(DEVICE) for k in (
+            "costs", "arc", "cap", "Fc", "perm", "inv_perm", "supply")),
+        groups=d["K"], block=d["B"])
     stagetimer.set_device_timing(True)
     nodes, tasks = _population()
     ckpt = load_cluster("population", nodes, tasks)
+    if toggle is not None and toggle not in COMPARE_TOGGLES:
+        fail(f"--compare toggles one of {COMPARE_TOGGLES}, not {toggle}")
+    hatch = COMPARE_HATCHES.get(toggle)
     for i in range(runs):
-        ring = not ring_turns or i % 4 in (0, 3)
-        _set_telemetry(ring)
-        rec = drive("wave", ckpt, tasks, 0)[0]
-        print(json.dumps({"route_split": rec["split"],
-                          "solve_device_s": rec["stages"].get("solve.device"),
-                          "telemetry": ring, "wall_s": rec["wall_s"],
-                          "smi": info["smi"]}), flush=True)
-    _set_telemetry(True)
+        on = toggle is None or i % 4 in (0, 3)
+        if hatch is not None:
+            _set_env(hatch, None if on else "0")
+        _set_native(on or toggle != "native")
+        recs = drive("compare", ckpt, tasks, 1,
+                     native=on or toggle != "native")
+        for rec in recs:
+            print(json.dumps({
+                "kind": rec["kind"], "toggle": toggle, "on": on,
+                "wall_s": rec["wall_s"], "iterations": rec["iterations"],
+                "host_reads": rec["host_reads"], "coarse": rec["coarse"],
+                "stages": rec["stages"], "gc": rec["gc"],
+                "route_split": rec["split"], "smi": info["smi"]}),
+                flush=True)
+    if hatch is not None:
+        _set_env(hatch, None)
+    _set_native(True)
     return 0
 
 
 def main(argv) -> int:
     if argv[:1] == ["--compare"]:
-        return compare(int(argv[1]), argv[2:3] == ["ring"])
+        return compare(int(argv[1]), (argv[2:3] or [None])[0])
     info = device_info()
     build_kernels()
-    fused, tiled, gu, l2_rate = kernel_phase()
-    capture = []
+    fused, tiled, gu, disagg, program, l2_rate = kernel_phase()
+    capture = {}
     results, launches, ring_cost = main_path(capture)
     # The kernels at the main path's own wave shapes (after the path's
     # launches were read, so these comparisons are not counted).
@@ -1354,9 +1836,13 @@ def main(argv) -> int:
     if "tiled" in cases:
         log("kernels: B2 at the main path's wave shape")
         tiled += check_tiled([cases["tiled"]])
+    if "disagg" not in cases:
+        fail("the main path's wave captured no disaggregation")
+    log("kernels: the disaggregation at the main path's seam")
+    disagg += check_coarse_disaggregate([cases["disagg"]])
     # Output check: the wave placed pods and every round certified (the
     # drive fails otherwise); the churn rounds re-placed the churned pods.
-    wave = results["tiers_on"]
+    wave = results["main"]
     if wave[0]["placed"] <= 0:
         fail("the fresh wave placed nothing")
     # What the ring costs, as measured in this run.
@@ -1368,8 +1854,25 @@ def main(argv) -> int:
                               [r["solve_ms"], r["solve_ms_ring_off"]]
                               for r in tiled}
     log("ring cost, ms or s with the ring on / off: " + json.dumps(cost))
+    # The slice's stages by drive: the wave's device solve, view build,
+    # assignment and wall, and the churn rounds' view build and wall.
+    summary = {"card": info["smi"], "b5_program": program}
+    for name, rs in results.items():
+        summary[name] = [
+            {"kind": r["kind"], "wall_s": r["wall_s"],
+             "iterations": r["iterations"], "host_reads": r["host_reads"],
+             "seam_reads": r["seam_reads"], "coarse": r["coarse"],
+             **{k: r["stages"].get(k) for k in (
+                 "solve.device", "solve.device.fused", "solve.device.tiled",
+                 "solve.device.coarse_lift",
+                 "solve.device.coarse_disaggregate",
+                 "solve.device.coarse_certificate", "round.view_build",
+                 "round.assign", "round.solve_band", "round.cost_build")},
+             **r["gc"]}
+            for r in rs]
+    log("stages by drive: " + json.dumps(summary))
     print(info["smi"], flush=True)
-    print(json.dumps(kernels_record(fused, tiled, gu, launches)),
+    print(json.dumps(kernels_record(fused, tiled, gu, disagg, launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],

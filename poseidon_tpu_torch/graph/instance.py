@@ -58,6 +58,9 @@ from poseidon_tpu_torch.ops.transport import (
     solve_transport_selective,
     sparse_adm_cells,
 )
+from poseidon_tpu_torch.ops.transport_coarse import (
+    solve_transport_coarse_fused,
+)
 from poseidon_tpu_torch.utils.hatches import hatch_bool, hatch_int
 from poseidon_tpu_torch.utils.stagetimer import stage as _stage
 
@@ -1337,18 +1340,36 @@ class RoundPlanner:
         effective_costs)``; ``effective_costs`` is what the final prices
         are optimal for."""
         prices, flows0, unsched0, eps_start = warm_state
+        sol = None
         eps_is_exact = warm_eps_exact
         if prices is None and hatch_bool("POSEIDON_COARSE"):
             # Fresh-wave coarse start: solve the machine-aggregated
-            # [E, 256] instance through the same dispatch, lift its duals
-            # and primal, and start the ladder at the lift's certified
-            # epsilon (the reference's host two-dispatch path).
+            # [E, 256] instance, lift its duals and primal, and start the
+            # ladder at the lift's certified epsilon.  On the card the
+            # whole pipeline runs as one device program
+            # (transport_coarse); a declined program falls through to the
+            # host two-dispatch path.
             hint = self.cost_model.max_cost()
+            # Size gates and greedy certificate once, for both paths.
             pre = coarse_precheck(
                 costs, ecs_b.supply, col_cap, arc_capacity, unsched_cost,
                 hint, scale=scale,
             )
-            if pre is not None:
+            if (pre is not None
+                    and not pre["certified"]
+                    and (scale is None
+                         or hatch_bool("POSEIDON_COARSE_PINNED"))
+                    and accel_policy("POSEIDON_COARSE_FUSED", self.device)):
+                # Pinned-scale (pruned) planes run it too: ``pre`` carries
+                # the pinned scale.
+                sol = solve_transport_coarse_fused(
+                    costs, ecs_b.supply, col_cap, unsched_cost,
+                    arc_capacity=arc_capacity, max_cost_hint=hint,
+                    max_iter_total=8192,
+                    global_update_every=self.global_update_every,
+                    pre=pre, device=self.device,
+                )
+            if pre is not None and sol is None:
                 def counting_solve(*a, **k):
                     # The coarse dispatch's work lands in the metrics.
                     s = self._dispatch_solve(*a, **k)
@@ -1380,13 +1401,14 @@ class RoundPlanner:
                 scale=scale, eps_exact=exact,
             )
 
-        sol = run(costs, eps_start, prices, flows0, unsched0,
-                  exact=eps_is_exact)
-        if prices is not None and sol.gap_bound == float("inf"):
-            # Any warm start can mislead: retry cold.
-            self._hidden_iters += sol.iterations
-            self._hidden_bf += sol.bf_sweeps
-            sol = run(costs, None)
+        if sol is None:
+            sol = run(costs, eps_start, prices, flows0, unsched0,
+                      exact=eps_is_exact)
+            if prices is not None and sol.gap_bound == float("inf"):
+                # Any warm start can mislead: retry cold.
+                self._hidden_iters += sol.iterations
+                self._hidden_bf += sol.bf_sweeps
+                sol = run(costs, None)
 
         effective_costs = costs
         if (

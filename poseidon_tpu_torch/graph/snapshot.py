@@ -139,11 +139,12 @@ def _atomic_write(path: Path, data: bytes) -> None:
         pass  # directory fsync is best-effort (not all FS allow it)
 
 
-def load_state(path: Union[str, Path]) -> ClusterState:
+def load_state(path: Union[str, Path],
+               use_native: bool = True) -> ClusterState:
     doc = json.loads(Path(path).read_text())
     if doc.get("version") != _FORMAT_VERSION:
         raise ValueError(f"unknown snapshot version {doc.get('version')}")
-    state = ClusterState()
+    state = ClusterState(use_native=use_native)
     for md in doc["machines"]:
         m = MachineInfo(
             uuid=md["uuid"],
@@ -179,6 +180,7 @@ def load_state(path: Union[str, Path]) -> ClusterState:
         if t2 is not None:
             t2.wait_rounds = int(td.get("wait_rounds", 0))
     state.apply_placements(placements)
+    state.mirror_wait_rounds()
     state.round_index = int(doc.get("round_index", 0))
     return state
 
@@ -237,20 +239,22 @@ def save_checkpoint(state: ClusterState, planner, path: Union[str, Path]):
 
 
 def load_checkpoint(path: Union[str, Path], cost_model=None, device=None,
-                    strict: bool = False, **planner_kw):
+                    strict: bool = False, use_native: bool = True,
+                    **planner_kw):
     """Restore ``(state, planner)`` from a checkpoint.
 
     ``cost_model`` defaults to the CPU/Mem model (the reference's active
     one).  Warm frames are restored when present; with ``strict`` off a
     missing or corrupt frames file degrades to a cold start (the frames
-    are an optimization, the state is the truth).
+    are an optimization, the state is the truth).  ``use_native`` is
+    ``ClusterState``'s.
     """
     import numpy as np
 
     from poseidon_tpu_torch.costmodel import get_cost_model
     from poseidon_tpu_torch.graph.instance import RoundPlanner
 
-    state = load_state(path)
+    state = load_state(path, use_native=use_native)
     planner = RoundPlanner(
         state, cost_model or get_cost_model("cpu_mem"), device=device,
         **planner_kw,

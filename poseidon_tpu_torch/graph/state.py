@@ -21,6 +21,7 @@ of the reference's degenerate one-PU topology.
 from __future__ import annotations
 
 import enum
+import logging
 import threading
 from collections import deque
 from dataclasses import dataclass, field
@@ -29,10 +30,13 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from poseidon_tpu_torch.graph.ecs import Selector, ec_signature
+from poseidon_tpu_torch.utils.ids import fnv64a
 from poseidon_tpu_torch.graph.residency import (
     MachineLabelIndex,
     ResidentLabelIndex,
 )
+
+log = logging.getLogger("poseidon_tpu_torch.state")
 
 
 class TaskReply(enum.IntEnum):
@@ -198,13 +202,31 @@ class ClusterState:
     """The mutable cluster model; thread-safe (the gRPC server is
     multi-threaded, matching the reference's concurrent watcher RPCs).
 
-    The port runs the reference's pure-Python aggregation path (its
-    ``use_native=False``): the per-round view is built in one pass over
-    the tasks under the lock.
+    The numeric hot path, the O(N) per-round aggregation over every
+    task, is mirrored into the native C++ graph core
+    (``poseidon_tpu_torch/native``) as in the reference: every mutator
+    updates the mirror under the same lock, and ``build_round_view``
+    reads the columnar view from it.  ``use_native=False`` keeps the
+    pure-Python pass; so does a core that cannot be built, with a
+    warning.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, use_native: bool = True) -> None:
         self._lock = threading.RLock()
+        self._native = None
+        self._machine_key: Dict[str, int] = {}  # uuid -> native key
+        if use_native:
+            from poseidon_tpu_torch.native import (
+                NativeGraphCore,
+                native_error,
+            )
+
+            try:
+                self._native = NativeGraphCore()
+            except RuntimeError:
+                log.warning("native graph core unavailable (%s); the "
+                            "round view is built in Python",
+                            native_error())
         self.tasks: Dict[int, TaskInfo] = {}
         self.jobs: Dict[str, Set[int]] = {}
         self.machines: Dict[str, MachineInfo] = {}
@@ -240,6 +262,19 @@ class ClusterState:
         # (insertion order) so dead uids cannot grow it without limit.
         self.prior_machine: Dict[int, str] = {}
         self._PRIOR_CAP = 1_000_000
+
+    def _nkey(self, uuid: str) -> int:
+        """Native machine key for a uuid (minted once; never 0)."""
+        key = self._machine_key.get(uuid)
+        if key is None:
+            key = fnv64a(uuid) or 1
+            self._machine_key[uuid] = key
+        return key
+
+    @property
+    def native_loaded(self) -> bool:
+        """Whether this state mirrors into the native graph core."""
+        return self._native is not None
 
     # ------------------------------------------------------------------ tasks
 
@@ -279,6 +314,15 @@ class ClusterState:
             if self._residency.active and task.scheduled_to is not None:
                 # Carried binding (restart recovery): resident on arrival.
                 self._residency.add(task.scheduled_to, task.labels)
+            if self._native is not None:
+                self._native.task_submit(
+                    task.uid, task.ec_id, task.cpu_request,
+                    task.ram_request, task.net_rx_request, task.task_type,
+                )
+                if task.scheduled_to is not None:
+                    self._native.task_place(
+                        task.uid, self._nkey(task.scheduled_to)
+                    )
             self.generation += 1
             return TaskReply.SUBMITTED_OK
 
@@ -290,6 +334,8 @@ class ClusterState:
             self._residency.remove(task.scheduled_to, task.labels)
         task.state = state
         task.scheduled_to = None
+        if self._native is not None:
+            self._native.task_set_state(uid, int(state))
         self.generation += 1
         return task
 
@@ -312,6 +358,8 @@ class ClusterState:
                 self._residency.remove(task.scheduled_to, task.labels)
             task.state = TaskState.FAILED
             task.scheduled_to = None
+            if self._native is not None:
+                self._native.task_set_state(uid, int(TaskState.FAILED))
             self.generation += 1
             return TaskReply.FAILED_OK
 
@@ -342,6 +390,8 @@ class ClusterState:
                 if not members:
                     del self.jobs[task.job_id]  # job GC, podwatcher.go:288-309
             self.task_kb.pop(uid, None)
+            if self._native is not None:
+                self._native.task_remove(uid)
             self.generation += 1
             return TaskReply.REMOVED_OK
 
@@ -381,6 +431,12 @@ class ClusterState:
                 self._residency.active and self._pod_selector_tasks == 0
             ):
                 self._residency.deactivate()
+            if self._native is not None:
+                self._native.task_update(
+                    existing.uid, existing.ec_id, existing.cpu_request,
+                    existing.ram_request, existing.net_rx_request,
+                    existing.task_type,
+                )
             self.generation += 1
             return TaskReply.UPDATED_OK
 
@@ -396,6 +452,12 @@ class ClusterState:
             # debug dumps) and set order is not reproducible across runs.
             for sub in sorted(machine.subtree_uuids):
                 self.resource_to_machine[sub] = machine.uuid
+            if self._native is not None:
+                self._native.machine_add(
+                    self._nkey(machine.uuid), machine.cpu_capacity,
+                    machine.ram_capacity, machine.net_rx_capacity,
+                    machine.task_slots,
+                )
             self._node_generation += 1
             self.generation += 1
             return NodeReply.ADDED_OK
@@ -409,6 +471,13 @@ class ClusterState:
                     self._residency.remove(machine_uuid, task.labels)
                 task.scheduled_to = None
                 task.state = TaskState.RUNNABLE
+                if self._native is not None:
+                    # RUNNABLE via set_state clears the binding without
+                    # ticking the wait escalator (eviction, not a failed
+                    # placement attempt).
+                    self._native.task_set_state(
+                        task.uid, int(TaskState.RUNNABLE)
+                    )
                 evicted.append(task.uid)
         return evicted
 
@@ -442,6 +511,8 @@ class ClusterState:
             if self._residency.active:
                 # Row recycled only after eviction drained its counts.
                 self._residency.machine_removed(machine.uuid)
+            if self._native is not None:
+                self._native.machine_remove(self._nkey(machine.uuid))
             self._node_generation += 1
             self.generation += 1
             return NodeReply.REMOVED_OK
@@ -466,6 +537,12 @@ class ClusterState:
             for sub in sorted(machine.subtree_uuids):
                 existing.subtree_uuids.add(sub)
                 self.resource_to_machine[sub] = existing.uuid
+            if self._native is not None:
+                self._native.machine_update(
+                    self._nkey(existing.uuid), existing.cpu_capacity,
+                    existing.ram_capacity, existing.net_rx_capacity,
+                    existing.task_slots,
+                )
             self._node_generation += 1
             self.generation += 1
             return NodeReply.UPDATED_OK
@@ -534,7 +611,13 @@ class ClusterState:
         runnable, running = TaskState.RUNNABLE, TaskState.RUNNING
         res_dec: List[int] = []
         res_inc: List[int] = []
+        native_uids = []
+        native_keys = []
         with self._lock:
+            has_native = self._native is not None
+            nkey = self._nkey
+            uids_append = native_uids.append
+            keys_append = native_keys.append
             # Residency deltas (None while the mask engine is inactive —
             # the common no-affinity wave pays one attribute check).
             # Label-less transitions batch into two scatter-adds;
@@ -566,7 +649,17 @@ class ClusterState:
                 else:
                     task.state = running
                     task.wait_rounds = 0
+                if has_native:
+                    uids_append(uid)
+                    keys_append(nkey(machine_uuid) if machine_uuid else 0)
                 applied = True
+            if native_uids:
+                # One C call for the whole round: a ctypes call per task
+                # would cost more than the round's own placement loop.
+                self._native.task_place_batch(
+                    np.asarray(native_uids, dtype=np.uint64),
+                    np.asarray(native_keys, dtype=np.uint64),
+                )
             if res is not None:
                 res.bump_totals(res_dec, res_inc)
             if applied:
@@ -576,6 +669,28 @@ class ClusterState:
                 # write-back, not watcher ingest — it must not count
                 # against the streaming admission window.
                 self.generation += 1
+
+    def mirror_wait_rounds(self) -> None:
+        """Copy the pending tasks' ``wait_rounds`` into the native core,
+        after a restore has set them directly.  The core counts a task's
+        waits itself, one per unscheduled placement, so each count is
+        replayed as that many: one batched call per level, the tasks
+        still owed a tick at that level first in the batch."""
+        if self._native is None:
+            return
+        with self._lock:
+            pend = [(uid, t.wait_rounds) for uid, t in self.tasks.items()
+                    if t.state == TaskState.RUNNABLE
+                    and t.scheduled_to is None and t.wait_rounds > 0]
+            if not pend:
+                return
+            pend.sort(key=lambda p: -p[1])
+            uids = np.fromiter((p[0] for p in pend), np.uint64, len(pend))
+            neg = np.fromiter((-p[1] for p in pend), np.int64, len(pend))
+            unplaced = np.zeros(len(pend), dtype=np.uint64)
+            for k in range(1, int(-neg[0]) + 1):
+                n = int(np.searchsorted(neg, -k, side="right"))
+                self._native.task_place_batch(uids[:n], unplaced[:n])
 
     # ------------------------------------------------- constraint-mask state
 
@@ -687,6 +802,8 @@ class ClusterState:
 
         from poseidon_tpu_torch.costmodel.base import ECTable, MachineTable
 
+        if self._native is not None:
+            return self._build_view_native(include_running)
 
         with self._lock:
             machines = [m for m in self.machines.values() if m.healthy]
@@ -782,6 +899,136 @@ class ClusterState:
             rep_list = [reps[e] for e in ec_ids]
             ecs = ECTable(
                 ec_ids=np.array(ec_ids, dtype=np.uint64),
+                cpu_request=np.array(
+                    [r.cpu_request for r in rep_list], dtype=np.int64
+                ),
+                ram_request=np.array(
+                    [r.ram_request for r in rep_list], dtype=np.int64
+                ),
+                supply=supply,
+                priority=np.array(
+                    [r.priority for r in rep_list], dtype=np.int32
+                ),
+                task_type=np.array(
+                    [r.task_type for r in rep_list], dtype=np.int32
+                ),
+                max_wait_rounds=max_wait,
+                selectors=[r.selectors for r in rep_list],
+                net_rx_request=np.array(
+                    [r.net_rx_request for r in rep_list], dtype=np.int64
+                ),
+                running_by_machine=running_by_machine,
+                is_gang=np.array([r.gang for r in rep_list], dtype=bool),
+                pod_affinity=[r.pod_affinity for r in rep_list],
+                pod_anti_affinity=[r.pod_anti_affinity for r in rep_list],
+                labels=[r.labels for r in rep_list],
+            )
+            mt = MachineTable(
+                uuids=[m.uuid for m in machines],
+                cpu_capacity=np.array(
+                    [m.cpu_capacity for m in machines], np.int64
+                ),
+                ram_capacity=np.array(
+                    [m.ram_capacity for m in machines], np.int64
+                ),
+                cpu_used=cpu_used,
+                ram_used=ram_used,
+                cpu_util=np.array([m.cpu_util for m in machines], np.float32),
+                mem_util=np.array([m.mem_util for m in machines], np.float32),
+                slots_free=np.maximum(
+                    np.array([m.task_slots for m in machines], np.int32)
+                    - slots_used,
+                    0,
+                ),
+                labels=[m.labels for m in machines],
+                net_rx_capacity=np.array(
+                    [m.net_rx_capacity for m in machines], np.int64
+                ),
+                net_rx_used=net_used,
+                type_census=census,
+                coco_penalties=np.array(
+                    [
+                        m.coco_penalties or (0, 0, 0, 0)
+                        for m in machines
+                    ],
+                    dtype=np.int64,
+                ),
+                residents=residents,
+                label_index=self._machine_label_index(machines),
+                cpu_obs_used=cpu_obs,
+                ram_obs_used=ram_obs,
+            )
+            return RoundView(
+                ecs=ecs,
+                machines=mt,
+                member_uids=member_uids,
+                member_cur=member_cur,
+                member_wait=member_wait,
+                generation=self.generation,
+            )
+
+    def _build_view_native(self, include_running: bool) -> "RoundView":
+        """Round view via the C++ graph core: the O(N) aggregation,
+        grouping and sorting run native; Python assembles the per-EC
+        attribute tables from the (few) representative tasks."""
+        import numpy as np
+
+        from poseidon_tpu_torch.costmodel.base import ECTable, MachineTable
+
+        with self._lock:
+            machines = [m for m in self.machines.values() if m.healthy]
+            machines.sort(key=lambda m: m.uuid)
+            keys = np.fromiter(
+                (self._nkey(m.uuid) for m in machines),
+                dtype=np.uint64, count=len(machines),
+            )
+            (ec_ids, offsets, uids, cur, wait, census, cpu_used, ram_used,
+             net_used, slots_used) = self._native.build_view(
+                keys, include_running
+            )
+            E, M = ec_ids.shape[0], len(machines)
+
+            member_uids, member_cur, member_wait = [], [], []
+            supply = np.empty(E, dtype=np.int32)
+            max_wait = np.empty(E, dtype=np.int32)
+            running_by_machine = np.zeros((E, M), dtype=np.int32)
+            rep_list = []
+            for i in range(E):
+                o, o2 = int(offsets[i]), int(offsets[i + 1])
+                member_uids.append(uids[o:o2])
+                member_cur.append(cur[o:o2])
+                member_wait.append(wait[o:o2])
+                supply[i] = o2 - o
+                max_wait[i] = int(wait[o:o2].max()) if o2 > o else 0
+                placed = cur[o:o2][cur[o:o2] >= 0]
+                if placed.size:
+                    running_by_machine[i] = np.bincount(
+                        placed, minlength=M
+                    )
+                rep_list.append(self.tasks[int(uids[o])])
+
+            # Resident-label aggregates (pod-level affinity): the same
+            # incremental interned matrices as the Python path — labels
+            # never cross the native boundary, and the O(tasks) label
+            # re-scan this path used to pay per round is gone.
+            residents = self._round_residents(machines)
+
+            # Descriptor-carried Whare-Map census on top of the live one.
+            for j, m in enumerate(machines):
+                if m.whare_stats is not None:
+                    _idle, dev, rab, shp, tur = m.whare_stats
+                    census[j, 0] += shp
+                    census[j, 1] += rab
+                    census[j, 2] += dev
+                    census[j, 3] += tur
+
+            cpu_obs, ram_obs = self._kb_observed(
+                {m.uuid: j for j, m in enumerate(machines)},
+                census, cpu_used, ram_used, include_running,
+            )
+
+            ecs = ECTable(
+                ec_ids=ec_ids,
                 cpu_request=np.array(
                     [r.cpu_request for r in rep_list], dtype=np.int64
                 ),

@@ -23,7 +23,8 @@ from pathlib import Path
 from types import SimpleNamespace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_ladder.cu", "tiled_iteration.cu", "global_update.cu")
+_SOURCES = ("fused_ladder.cu", "tiled_iteration.cu", "global_update.cu",
+            "coarse_disaggregate.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,7 +33,8 @@ NVCC_FLAGS = (
 
 # Launch counts, one per kernel: each wrapper adds one where it launches
 # its kernel and nowhere else.
-LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0, "global_update": 0}
+LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0, "global_update": 0,
+            "coarse_disaggregate": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -131,6 +133,10 @@ def lib() -> SimpleNamespace:
             bind("global_update.cu", "pt_global_update_ws_ints", [I, I, I],
                  LL)
             bind("global_update.cu", "pt_global_update_plan", [I, I, P], I)
+            bind("coarse_disaggregate.cu", "pt_coarse_disaggregate",
+                 [P] * 8 + [I] * 4 + [P], I)
+            bind("coarse_disaggregate.cu",
+                 "pt_coarse_disaggregate_smem_bytes", [I], ctypes.c_size_t)
             _LIB = SimpleNamespace(**fns)
         return _LIB
 

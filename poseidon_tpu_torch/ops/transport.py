@@ -295,6 +295,8 @@ class _Telemetry:
     Bellman-Ford sweeps of the device solves by ``impl``, and
     ``stage_reads`` counts host reads by phase-loop stage
     (``solve.device.<impl>.iterate``, ``.global_update``, ``.other``).
+    ``coarse_outcomes`` counts the one-program coarse start's runs
+    (``transport_coarse``) by what each did: ran, or why it declined.
     """
 
     device_calls = 0
@@ -304,6 +306,7 @@ class _Telemetry:
     route_iters: Counter = Counter()
     route_sweeps: Counter = Counter()
     stage_reads: Counter = Counter()
+    coarse_outcomes: Counter = Counter()
 
 
 def device_call_count() -> int:
@@ -861,6 +864,30 @@ def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
     return F, Ffb, torch.cat([pe, pm, pt]), stats
 
 
+def route_for(e_pad: int, m_pad: int, device) -> str:
+    """The ladder route a solve at padded shape ``(e_pad, m_pad)`` takes:
+    ``fused`` (B1), ``tiled`` (B2's route) or the plain ``lax`` ladder."""
+    if _use_fused(e_pad, m_pad, device):
+        return "fused"
+    if _use_tiled(e_pad, m_pad, device):
+        return "tiled"
+    return "lax"
+
+
+def solve_route(impl: str, *args, **kw):
+    """``_solve_device`` through route ``impl`` on device tensors (the
+    arguments and result of ``_solve_device``)."""
+    if impl == "fused":
+        from poseidon_tpu_torch.ops.transport_fused import solve_device_fused
+
+        return solve_device_fused(*args, **kw)
+    if impl == "tiled":
+        from poseidon_tpu_torch.ops.transport_tiled import solve_device_tiled
+
+        return solve_device_tiled(*args, **kw)
+    return _solve_device(*args, **kw)
+
+
 def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
                          scale: int, impl: str, device, telem_cap: int = 0):
     """Packed-I/O front of the three routes (``fused``, ``tiled``, plain
@@ -891,25 +918,11 @@ def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
     def v(name):
         return vec_d[slice(*cuts[name])]
 
-    args = (big_d[0], v("supply"), v("capacity"), v("unsched"), big_d[1],
-            v("prices"), big_d[2], v("fb"), eps_sched, max_iter_total,
-            global_every, bf_max, adaptive_bf)
-    if impl == "fused":
-        from poseidon_tpu_torch.ops.transport_fused import solve_device_fused
-
-        F, Ffb, prices, stats = solve_device_fused(
-            *args, max_iter=max_iter, scale=scale, total=total,
-            telem_cap=telem_cap)
-    elif impl == "tiled":
-        from poseidon_tpu_torch.ops.transport_tiled import solve_device_tiled
-
-        F, Ffb, prices, stats = solve_device_tiled(
-            *args, max_iter=max_iter, scale=scale, total=total,
-            telem_cap=telem_cap)
-    else:
-        F, Ffb, prices, stats = _solve_device(
-            *args, max_iter=max_iter, scale=scale, total=total,
-            telem_cap=telem_cap)
+    F, Ffb, prices, stats = solve_route(
+        impl, big_d[0], v("supply"), v("capacity"), v("unsched"), big_d[1],
+        v("prices"), big_d[2], v("fb"), eps_sched, max_iter_total,
+        global_every, bf_max, adaptive_bf, max_iter=max_iter, scale=scale,
+        total=total, telem_cap=telem_cap)
     # A certified warm round often returns the warm start bit-for-bit: the
     # host already owns that matrix, so flag it and skip the [E, M] read.
     unchanged = (F == big_d[2]).all().to(I32).reshape(1)
@@ -2185,12 +2198,7 @@ def solve_transport(
             dtype=np.int32,
         ),
     ])
-    if _use_fused(E_pad, M_pad, dev):
-        impl = "fused"
-    elif _use_tiled(E_pad, M_pad, dev):
-        impl = "tiled"
-    else:
-        impl = "lax"
+    impl = route_for(E_pad, M_pad, dev)
     _Telemetry.routes[(impl, E_pad, M_pad)] += 1
     telem_cap = solve_telemetry_cap()
     with _stage("solve.device"), _stage(f"solve.device.{impl}", dev):

@@ -61,6 +61,13 @@ HATCHES: Tuple[Hatch, ...] = (
     Hatch("POSEIDON_COARSE", "bool_on", "1",
           "Fresh-wave coarse warm start: solve the machine-aggregated "
           "instance and lift its duals"),
+    Hatch("POSEIDON_COARSE_FUSED", "tristate", "",
+          "Fresh-wave coarse start as one device program (coarse ladder, "
+          "lift, disaggregation, certificate, full ladder; CUDA default "
+          "on; 0 runs the host two-dispatch coarse start)"),
+    Hatch("POSEIDON_COARSE_PINNED", "bool_on", "1",
+          "Run the one-program coarse start on pinned-scale (pruned) "
+          "planes too; 0 keeps those planes on the host coarse start"),
     Hatch("POSEIDON_SOLVE_TELEMETRY", "bool_on", "1",
           "Convergence-telemetry ring: one int32 sample per active "
           "push/relabel iteration, written on the device and read with "

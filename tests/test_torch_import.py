@@ -29,6 +29,9 @@ names = ["poseidon_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+assert {"poseidon_tpu_torch.ops.transport_coarse",
+        "poseidon_tpu_torch.native", "poseidon_tpu_torch.native.bindings",
+        } <= set(names), names
 import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "poseidon_tpu")]

@@ -111,7 +111,7 @@ def make_task(uid, job, cpu, ram, selectors=(), labels=None):
     return req
 
 
-def rpc_script(seed=0, machines=48, shapes=12, tasks=360):
+def rpc_script(seed=0, machines=48, shapes=12, tasks=360, slots=16):
     """A seeded list of (method, request) steps; None marks a Schedule."""
     rng = np.random.default_rng(seed)
     steps = []
@@ -122,7 +122,8 @@ def rpc_script(seed=0, machines=48, shapes=12, tasks=360):
         uuid = generate_uuid(f"svc-m{i}")
         nodes.append(uuid)
         labels = {"zone": "a" if i % 2 else "b"}
-        steps.append(("NodeAdded", make_node(uuid, cpu, ram, labels)))
+        steps.append(("NodeAdded", make_node(uuid, cpu, ram, labels,
+                                             slots=slots)))
     ec_cpu = rng.integers(500, 6000, size=shapes)
     ec_ram = rng.integers(1 << 20, 1 << 24, size=shapes)
     live = []
@@ -170,7 +171,9 @@ def assert_same_round(j, t, counts=COUNTS):
         assert getattr(jm, name) == getattr(tm, name), name
 
 
-def drive_both(steps):
+def drive_both(steps, check=None):
+    """Both servers over ``steps``; ``check(js, ts)`` runs on the two
+    servers before they close."""
     with JServer(JConfig(), address="127.0.0.1:0") as js, \
             FirmamentTPUServer(FirmamentTPUConfig(device="cpu"),
                                address="127.0.0.1:0") as ts:
@@ -181,6 +184,8 @@ def drive_both(steps):
             t_rounds = drive(make_stubs(tc, FIRMAMENT_SERVICE,
                                         FIRMAMENT_METHODS),
                              ts.servicer, steps)
+        if check is not None:
+            check(js, ts)
     return j_rounds, t_rounds
 
 
@@ -216,6 +221,48 @@ def test_service_deltas_byte_identical_tiers_on(monkeypatch):
     assert all(m.gap_bound == 0.0 for m in metrics)
 
 
+def _count_fused(monkeypatch):
+    """Count the fused coarse programs that returned a solution, in each
+    package's planner: ``{"jax": n, "port": n}``."""
+    import poseidon_tpu.ops.transport_coarse as JC
+    import poseidon_tpu_torch.graph.instance as TI
+
+    counts = {"jax": 0, "port": 0}
+    for key, mod in (("jax", JC), ("port", TI)):
+        real = mod.solve_transport_coarse_fused
+
+        def spy(*a, _real=real, _key=key, **k):
+            sol = _real(*a, **k)
+            counts[_key] += sol is not None
+            return sol
+
+        monkeypatch.setattr(mod, "solve_transport_coarse_fused", spy)
+    return counts
+
+
+def test_service_deltas_byte_identical_coarse_fused(monkeypatch):
+    """Both packages at their default planner tiers with the one-program
+    coarse start forced on (the card's default, ``POSEIDON_COARSE_FUSED=1``
+    in both), over a cluster wide and contended enough for it (960
+    one-slot machines): the program answers the fresh bands in both, and
+    every round's deltas and tier counts, device calls included, agree.
+    Each server runs its native graph core."""
+    monkeypatch.setenv("POSEIDON_COARSE_FUSED", "1")
+    counts = _count_fused(monkeypatch)
+
+    def native(js, ts):
+        assert js.servicer.state._native is not None
+        assert ts.servicer.state.native_loaded
+
+    j_rounds, t_rounds = drive_both(
+        rpc_script(machines=960, tasks=1500, slots=1), check=native)
+    assert len(j_rounds) == len(t_rounds) == 5
+    for j, t in zip(j_rounds, t_rounds):
+        assert_same_round(j, t, TIER_COUNTS)
+    assert counts["jax"] == counts["port"] > 0, counts
+    assert all(m.gap_bound == 0.0 for _, m in t_rounds)
+
+
 def test_planner_coarse_wave_identical(slice_hatches):
     """A fresh wave big enough for the coarse [E, 256] warm start (the
     main path's shape of work), at planner level."""
@@ -232,6 +279,17 @@ def test_planner_coarse_wave_identical_coarse_off(slice_hatches,
     monkeypatch.setenv("POSEIDON_COARSE", "0")
     routes = _coarse_wave_routes()
     assert routes and not any(m_pad == 256 for _, _, m_pad in routes), routes
+
+
+def test_planner_coarse_wave_identical_fused(slice_hatches, monkeypatch):
+    """The same wave with the one-program coarse start forced on in both
+    packages (the card's default): the program answers the wave, whose
+    solves run at the coarse [E, 256] and full widths inside it."""
+    monkeypatch.setenv("POSEIDON_COARSE_FUSED", "1")
+    counts = _count_fused(monkeypatch)
+    routes = _coarse_wave_routes()
+    assert counts["jax"] == counts["port"] > 0, counts
+    assert any(m_pad == 256 for _, _, m_pad in routes), routes
 
 
 def _coarse_wave_routes():
@@ -275,7 +333,7 @@ def _coarse_wave_routes():
         td, tm = tp.schedule_round()
         assert [(d.task_id, d.resource_id, int(d.type)) for d in jd] == \
             [(d.task_id, d.resource_id, int(d.type)) for d in td]
-        for name in COUNTS:
+        for name in COUNTS + ("device_calls", "repair_firings"):
             assert getattr(jm, name) == getattr(tm, name), name
     return [k for k, n in T._Telemetry.routes.items()
             if n > routes0.get(k, 0)]
