@@ -29,9 +29,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its ring marks equal to the plain update's, and its bound counted from
    each input read once; the coarse program's disaggregation kernel
    (F0 and fb0) at the wave's [128, 256 x 40], a ragged plane, a
-   pinned-scale reduced plane, B = 256 and many tied costs, with its
-   bound counted from the operations the function needs on this data
-   (member updates and a comparison sort's count); and the whole
+   pinned-scale reduced plane, B = 256, many tied costs and B = 33, with
+   its bound counted from what the function needs on this data (the
+   costs and arcs of the members of the pairs with flow, F0 written
+   once; member updates and a comparison sort's count); and the whole
    coarse-to-fine program (B5) on a seeded [128, 10240] wave instance
    against the plain pipeline forced, every field of the solution equal;
 4. main path: the port's gRPC server answers ``Schedule()`` for a
@@ -74,7 +75,10 @@ run) with its stages and the per-iteration route's split; run in two
 trees in turn, it compares them in one call.  ``--compare N ring`` (or
 ``coarse``, ``native``) turns the telemetry ring (the fused coarse
 program, the native graph core) on and off between the drives (on, off,
-off, on, ...).
+off, on, ...).  ``--compare N disagg [SEAM]`` times the disaggregation
+kernel alone: its first launch in the process, then its cases (and the
+wave seam a full run saves under ``build/chip_smoke/``) N times; a copy
+of this script in an earlier tree's root times that tree's kernel.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -198,7 +203,8 @@ def build_kernels() -> float:
 def check_smem() -> None:
     """B1 sizes its dynamic shared memory in C at launch; the Python
     mirror that the CPU tests hold to the route's gate must agree with it
-    at every E the gate admits."""
+    at every E the gate admits.  The disaggregation kernel's shared
+    memory, read against the card's opt-in limit, is logged."""
     from poseidon_tpu_torch.ops import _kernels
     from poseidon_tpu_torch.ops import transport_fused as TF
 
@@ -213,6 +219,16 @@ def check_smem() -> None:
     log(f"  B1 shared memory: {TF.ladder_smem_bytes(8)} to "
         f"{TF.ladder_smem_bytes(e // 2)} bytes for E = 8 to {e // 2}, "
         "kernel and mirror agree")
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    top = TC.MAX_BLOCK
+    if so.pt_coarse_disaggregate_smem_bytes(top) == 0:
+        fail(f"the disaggregation kernel cannot take B = {top}, the "
+             "wrapper's limit, on this card")
+    log("  disaggregation shared memory: " + ", ".join(
+        f"B = {b}: {so.pt_coarse_disaggregate_smem_bytes(b)} bytes"
+        for b in (1, 40, 256, 257, top)) + f"; the wrapper takes B up to "
+        f"{top}")
 
 
 # One block streaming a buffer from L2 (16-byte loads that bypass L1):
@@ -810,17 +826,18 @@ def disagg_ops(pairs: int, B: int) -> int:
 
 
 def _disagg_case(E, K, B, seed, *, m_live=None, ties=False, inadm=0.1,
-                 fc_hi=60, fc_zero=0.6):
+                 fc_hi=60, fc_zero=0.6, cost_hi=1000):
     """One disaggregation input at [E, K * B]: a padded plane (dead
-    columns past ``m_live``: INF cost, zero capacity), its column sort as
-    the program computes it, and a coarse flow of the given sparsity."""
+    columns past ``m_live``: INF cost, zero capacity) with costs below
+    ``cost_hi`` (4 with ``ties``), its column sort as the program computes
+    it, and a coarse flow of the given sparsity."""
     from poseidon_tpu_torch.ops import transport as T
 
     rng = np.random.default_rng(seed)
     M2 = K * B
     m_live = M2 if m_live is None else m_live
     costs = np.full((E, M2), T.INF_COST, dtype=np.int32)
-    costs[:, :m_live] = rng.integers(0, 4 if ties else 1000,
+    costs[:, :m_live] = rng.integers(0, 4 if ties else cost_hi,
                                      size=(E, m_live))
     live = costs[:, :m_live]
     live[rng.random((E, m_live)) < inadm] = T.INF_COST
@@ -837,57 +854,69 @@ def _disagg_case(E, K, B, seed, *, m_live=None, ties=False, inadm=0.1,
                     np.int32), K=K, B=B)
 
 
+DISAGG_OPERANDS = ("costs", "arc", "cap", "Fc", "perm", "inv_perm", "supply")
+
+
+def _disagg_args(d):
+    return tuple(torch.from_numpy(np.ascontiguousarray(d[k])).to(DEVICE)
+                 for k in DISAGG_OPERANDS)
+
+
 def disagg_cases():
     """The wave's [128, 256 x 40]; a ragged plane (10,000 live columns in
     200 groups of 52: M2 = 10,400 past the padded 10,240); a pinned-scale
     reduced plane [32, 2560]; B = 256 at [64, 65536]; many tied costs
-    with 30% inadmissible members."""
+    with 30% inadmissible members; B = 33, one past a warp, at the wave's
+    [128, 256 x 33]; the wave's shape with costs past 2^23."""
     return [
         ("wave", _disagg_case(128, 256, 40, SEED)),
         ("ragged", _disagg_case(100, 200, 52, SEED + 1, m_live=10_000)),
         ("pruned plane", _disagg_case(32, 256, 10, SEED + 2)),
         ("B=256", _disagg_case(64, 256, 256, SEED + 3, fc_hi=400)),
         ("ties", _disagg_case(128, 256, 40, SEED + 4, ties=True, inadm=0.3)),
+        ("B=33", _disagg_case(128, 256, 33, SEED + 6)),
+        ("wide costs", _disagg_case(128, 256, 40, SEED + 7,
+                                    cost_hi=1 << 27)),
     ]
 
 
 def check_coarse_disaggregate(cases) -> list:
     """The disaggregation kernel against the plain scan on the card: F0
     and fb0 bit-equal, timed with CUDA events beside the plain scan and
-    the bound (costs, arc, cap, perm, Fc and the supply read once, F0 and
-    fb0 written once; the operations the function needs on this data:
-    the member updates and a comparison sort's B * ceil(log2 B)
-    comparisons for each (row, group) pair with coarse flow,
-    ``disagg_ops``)."""
+    the bound; the kernel's time is the device's (``_time_device``: a
+    call's host work, some 0.05 ms, exceeds the kernel's, so events around
+    back-to-back calls would time the host), its host time per call
+    beside it.  The bytes are what this data needs: the costs and arcs of
+    the members of each (row, group) pair with coarse flow, cap and perm,
+    Fc and the supply read once, F0 and fb0 written once; the operations
+    are the member updates and a comparison sort's B * ceil(log2 B)
+    comparisons for each such pair (``disagg_ops``)."""
     from poseidon_tpu_torch.ops import transport_coarse as TC
 
     rows = []
     for label, d in cases:
-        t = {k: torch.from_numpy(np.ascontiguousarray(d[k])).to(DEVICE)
-             for k in ("costs", "arc", "cap", "Fc", "perm", "inv_perm",
-                       "supply")}
-        args = (t["costs"], t["arc"], t["cap"], t["Fc"], t["perm"],
-                t["inv_perm"], t["supply"])
+        args = _disagg_args(d)
         kw = dict(groups=d["K"], block=d["B"])
         a = TC.coarse_disaggregate(*args, **kw)
         b = TC.disaggregate_plain(*args, **kw)
         err = _max_err([x.cpu().numpy() for x in a],
                        [x.cpu().numpy() for x in b])
-        ms = _time_cuda(lambda: TC.coarse_disaggregate(*args, **kw), 10)
+        ms, host_ms = _time_device(
+            lambda: TC.coarse_disaggregate(*args, **kw), 20)
         plain_ms = _time_cuda(lambda: TC.disaggregate_plain(*args, **kw), 1)
         E, M2 = d["costs"].shape
         K, B = d["K"], d["B"]
         pairs = int((d["Fc"] > 0).sum())
-        nbytes = 4 * (3 * E * M2 + 2 * M2 + E * K + 2 * E)
+        nbytes = 4 * (2 * pairs * B + 2 * M2 + E * K + E + E * M2 + E)
         ops = disagg_ops(pairs, B)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
         rows.append(dict(shape=[E, M2], label=f"{label} K {K} B {B}",
-                         err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                         ops=ops, pairs=pairs))
+                         err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                         bytes=nbytes, ops=ops, pairs=pairs))
         log(f"  disaggregation {label} [{E}, {K} x {B}]: max_abs_err {err} "
             f"(F0, fb0), {pairs} (row, group) pairs with flow; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
-            f"({ms / bound:.1f}x)")
+            f"{ms:.4f} ms (host {host_ms:.4f} ms a call), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({ms / bound:.1f}x)")
         if err != 0:
             fail(f"the disaggregation kernel differs from the plain scan at "
                  f"{label}")
@@ -1740,8 +1769,11 @@ def kernels_record(fused, tiled, gu, disagg, launches):
         row("coarse_disaggregate",
             "poseidon_tpu_torch/ops/csrc/coarse_disaggregate.cu",
             "poseidon_tpu/ops/transport_coarse.py:226",
-            "one launch: the coarse program's whole disaggregation, one "
-            "block per column group", disagg, "coarse_disaggregate",
+            "one call: two CUDA kernels (init: F0 zeroed, the supply "
+            "copied; then the coarse program's whole disaggregation, one "
+            "block per column group: producer warps sort the active rows "
+            "into a shared-memory ring, one warp walks the row chain)",
+            disagg, "coarse_disaggregate",
             ring=False),
     ]}
 
@@ -1753,6 +1785,69 @@ def kernels_record(fused, tiled, gu, disagg, launches):
 COMPARE_HATCHES = {"ring": "POSEIDON_SOLVE_TELEMETRY",
                    "coarse": "POSEIDON_COARSE_FUSED"}
 COMPARE_TOGGLES = tuple(COMPARE_HATCHES) + ("native",)
+# The main path's wave seam (the inputs of its first disaggregation), saved
+# by a full run for ``--compare N disagg``.
+SEAM_FILE = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+    "wave_seam.npz"
+
+
+def _warm_disaggregate() -> None:
+    """One launch of the disaggregation kernel at each of its builds (1,
+    2, 4 or 8 members a lane: B = 8, 40, 100, 200), so that no drive is
+    charged for a first launch (loading the module: milliseconds of host
+    time)."""
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    for B in (8, 40, 100, 200):
+        d = _disagg_case(8, 16, B, SEED)
+        TC.coarse_disaggregate(*_disagg_args(d), groups=d["K"], block=B)
+
+
+def compare_disagg(runs: int, seam=None) -> int:
+    """``--compare N disagg [SEAM]``: the disaggregation kernel alone.
+    First the host milliseconds of the process's first launch (the wave
+    case; the wrapper call, then to the end of the kernel), then the
+    kernel cases (and the main path's wave seam, read from ``SEAM``, the
+    file a full run saves as ``SEAM_FILE``) N times, each held to the
+    plain scan and timed as the full run does (the same ``disaggregation
+    <label>`` lines), with a JSON line of times per pass.  The wrapper's
+    arguments have not changed since the kernel was first ported, so a
+    copy of this script in an earlier tree's root times that tree's
+    kernel: run both in turn to compare them in one call."""
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    info = device_info()
+    _kernels.lib()
+    cases = disagg_cases()
+    if seam is not None:
+        d = dict(np.load(seam))
+        d["K"], d["B"] = int(d["K"]), int(d["B"])
+        cases.append(("main-path wave seam", d))
+    label, d = cases[0]
+    args = _disagg_args(d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TC.coarse_disaggregate(*args, groups=d["K"], block=d["B"])
+    call_ms = (time.perf_counter() - t0) * 1000
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t0) * 1000
+    log(f"  disaggregation first launch ({label}): wrapper call "
+        f"{call_ms:.3f} ms of host time, {done_ms:.3f} ms to the kernel's "
+        "end")
+    print(json.dumps({"first_launch": {"case": label, "call_ms": call_ms,
+                                       "done_ms": done_ms},
+                      "smi": info["smi"]}), flush=True)
+    for i in range(runs):
+        rows = check_coarse_disaggregate(cases)
+        print(json.dumps({"disagg_ms": {r["label"]: r["ms"] for r in rows},
+                          "host_ms": {r["label"]: r["host_ms"] for r in rows},
+                          "bound_ms": {r["label"]: max(
+                              r["bytes"] / HBM_BYTES_PER_S,
+                              r["ops"] / INT32_OPS_PER_S) * 1e3
+                              for r in rows},
+                          "pass": i, "smi": info["smi"]}), flush=True)
+    return 0
 
 
 def compare(runs: int, toggle=None) -> int:
@@ -1782,15 +1877,7 @@ def compare(runs: int, toggle=None) -> int:
                      cap_hi=6)
     for impl in ("fused", "tiled"):
         _run_route(*_pack(*inst), impl)
-    # The disaggregation kernel's first launch in a process loads its
-    # module (26-27 ms of host time on the H100's host).
-    from poseidon_tpu_torch.ops import transport_coarse as TC
-
-    d = _disagg_case(8, 16, 4, SEED)
-    TC.coarse_disaggregate(
-        *(torch.from_numpy(d[k]).to(DEVICE) for k in (
-            "costs", "arc", "cap", "Fc", "perm", "inv_perm", "supply")),
-        groups=d["K"], block=d["B"])
+    _warm_disaggregate()
     stagetimer.set_device_timing(True)
     nodes, tasks = _population()
     ckpt = load_cluster("population", nodes, tasks)
@@ -1819,6 +1906,8 @@ def compare(runs: int, toggle=None) -> int:
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--compare"] and argv[2:3] == ["disagg"]:
+        return compare_disagg(int(argv[1]), (argv[3:4] or [None])[0])
     if argv[:1] == ["--compare"]:
         return compare(int(argv[1]), (argv[2:3] or [None])[0])
     info = device_info()
@@ -1838,6 +1927,8 @@ def main(argv) -> int:
         tiled += check_tiled([cases["tiled"]])
     if "disagg" not in cases:
         fail("the main path's wave captured no disaggregation")
+    SEAM_FILE.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(SEAM_FILE, **cases["disagg"][1])
     log("kernels: the disaggregation at the main path's seam")
     disagg += check_coarse_disaggregate([cases["disagg"]])
     # Output check: the wave placed pods and every round certified (the

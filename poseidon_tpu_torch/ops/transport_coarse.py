@@ -154,17 +154,30 @@ def disaggregate_plain(costs, arc_cap, capacity, Fc, perm, inv_perm,
     return F0.contiguous(), fb0
 
 
+# The largest group the wrapper takes, checked before the kernel is
+# built: its col_left and columns and one slot of its padded sort fit the
+# H100's 227 KB a block (the kernel reads its card's limit and refuses a
+# group past it, 12670 members on the H100).
+MAX_BLOCK = 12288
+
+
 def coarse_disaggregate(costs, arc_cap, capacity, Fc, perm, inv_perm,
                         supply, *, groups, block):
-    """``disaggregate_plain`` as one launch of ``csrc/coarse_disaggregate.cu``
-    (one block per column group) on CUDA tensors, or as the plain scan on
-    CPU tensors.  Operands are int32; returns ``(F0, fb0)``."""
+    """``disaggregate_plain`` as one call of ``csrc/coarse_disaggregate.cu``
+    on CUDA tensors: two CUDA kernels, an init (F0 zeroed, the supply
+    copied into fb0) and then the disaggregation (one block per column
+    group: producer warps sort the group's active rows, one warp walks
+    the row chain); counted once in ``LAUNCHES``.  On CPU tensors, the
+    plain scan.  Operands are int32; returns ``(F0, fb0)``."""
     if costs.device.type == "cpu":
         return disaggregate_plain(costs, arc_cap, capacity, Fc, perm,
                                   inv_perm, supply, groups=groups,
                                   block=block)
     E, M = costs.shape
     K, B = groups, block
+    if not 1 <= B <= MAX_BLOCK:
+        raise ValueError(f"block {B}: the kernel takes 1 to {MAX_BLOCK} "
+                         "members per group")
     dev = costs.device
     ck = _kernels.check
     F0 = torch.empty((E, M), dtype=I32, device=dev)

@@ -219,16 +219,20 @@ def test_fused_rejects_flow_mass_overflow(fused_on):
 
 # ------------------------------------------------- the middle of the band
 
-def _crafted(case, seed=0):
+def _crafted(case, seed=0, *, K=None, B=None):
     """Operands of one band's middle: a padded [E, M2] plane, its column
-    sort, and a crafted coarse result (flows, prices)."""
+    sort, and a crafted coarse result (flows, prices).  By default 128
+    groups over m_pad = 1024 (100 for ``ragged``) and 1000 live columns;
+    with ``K`` and ``B`` given, M2 = K * B with its last 1/40 dead."""
     rng = np.random.default_rng(seed)
-    E, m_pad, K = 8, 1024, 128
-    if case == "ragged":
-        K = 100
-    B = -(-m_pad // K)
+    E = 8
+    if K is None:
+        m_pad, K = 1024, 100 if case == "ragged" else 128
+        B = -(-m_pad // K)
+        M = 1000
+    else:
+        M = K * B - K * B // 40
     M2 = K * B
-    M = 1000
     costs = np.full((E, M2), T.INF_COST, dtype=np.int32)
     if case == "ties":
         costs[:, :M] = rng.integers(0, 4, size=(E, M))  # many equal costs
@@ -346,6 +350,28 @@ def test_band_middle_matches_reference(case, monkeypatch):
     np.testing.assert_array_equal(fb0.numpy(), ref[2])
 
 
+@pytest.mark.parametrize("case,K,B", [("ties", 128, 1),
+                                      ("inadmissible", 32, 32),
+                                      ("ties", 31, 33),
+                                      ("inadmissible", 4, 256)])
+def test_plain_scan_matches_reference_at_kernel_edges(case, K, B):
+    """The yardstick of the disaggregation kernel, the plain scan, equals
+    the reference's scan inside its band at the edges of the kernel's
+    layout: one member per group, a full warp of members, one past it,
+    and eight per lane."""
+    d = _crafted(case, seed=B, K=K, B=B)
+    ref = _reference_middle(d, scale=16)
+    t = {k: torch.from_numpy(np.ascontiguousarray(d[k]))
+         for k in ("costs", "arc", "cap", "Fc", "perm", "inv_perm",
+                   "supply")}
+    F0, fb0 = TC.disaggregate_plain(
+        t["costs"], t["arc"], t["cap"], t["Fc"], t["perm"], t["inv_perm"],
+        t["supply"], groups=K, block=B)
+    np.testing.assert_array_equal(F0.numpy(), ref[1])
+    np.testing.assert_array_equal(fb0.numpy(), ref[2])
+    assert ref[1].any()
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_device_certificate_matches_host(seed):
     """``_certified_eps_device`` equals the host ``_certified_eps`` (the
@@ -431,12 +457,15 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
                                         arc_capacity=arc)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "block"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     """On a tensor that is not on the CPU the wrapper takes its kernel
     path, whose operand checks reject what the kernel does not take
-    before anything is built or launched."""
+    before anything is built or launched: a wrong Fc, or a group larger
+    than the kernel's shared memory holds."""
     E, K, B = 4, 8, 2
+    if bad == "block":
+        K, B = 1, TC.MAX_BLOCK + 1
 
     def z(*shape, dtype=torch.int32, device="meta"):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -445,10 +474,11 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
             z(K * B), z(E)]
     args[3] = {"dtype": z(E, K, dtype=torch.int64),
                "shape": z(E, K + 1),
-               "device": z(E, K, device="cpu")}[bad]
+               "device": z(E, K, device="cpu"),
+               "block": z(E, K)}[bad]
     before = dict(_kernels.LAUNCHES)
     with pytest.raises(TypeError if bad == "dtype" else ValueError,
-                       match="Fc"):
+                       match="block" if bad == "block" else "Fc"):
         TC.coarse_disaggregate(*args, groups=K, block=B)
     assert _kernels.LAUNCHES == before
 
@@ -460,12 +490,51 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _edge_case(B, seed, cost_hi=200):
+    """A [16, 24 x B] plane at the edges of the kernel's layout: row 0's
+    members all tie, row 1 wants more than every member's caps, group 0
+    has no admissible member, and the rest is random with 20%
+    inadmissible members and costs below ``cost_hi``."""
+    rng = np.random.default_rng(seed)
+    E, K = 16, 24
+    M2 = K * B
+    costs = rng.integers(0, cost_hi, size=(E, M2)).astype(np.int32)
+    costs[rng.random((E, M2)) < 0.2] = T.INF_COST
+    costs[0] = 7
+    d = dict(arc=rng.integers(1, 5, size=(E, M2)).astype(np.int32),
+             cap=rng.integers(0, 6, size=M2).astype(np.int32),
+             Fc=rng.integers(0, 3 * B, size=(E, K)).astype(np.int32),
+             K=K, B=B)
+    d["Fc"][rng.random((E, K)) < 0.3] = 0
+    d["Fc"][:2] = [[2 * B], [1 << 20]]
+    d["perm"] = T.coarse_sort_order(costs).astype(np.int32)
+    d["inv_perm"] = np.argsort(d["perm"]).astype(np.int32)
+    costs[:, d["perm"][:B]] = T.INF_COST
+    d["costs"] = costs
+    d["supply"] = (d["Fc"].astype(np.int64).sum(1) + 5).astype(np.int32)
+    return d
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ties", "inadmissible", "ragged", "wide"])
+@pytest.mark.parametrize("case", ["ties", "inadmissible", "ragged", "wide",
+                                  "B=1", "B=31", "B=32", "B=33", "B=64",
+                                  "B=255", "B=256", "B=257", "B=1000",
+                                  "B=MAX_BLOCK", "costs past 2^23"])
 def test_disaggregate_kernel_on_card(cuda_device, case):
-    """The kernel against the plain scan on the card, bit-equal, B from 8
-    to 256 (the wide case: [64, 65536] in 256 groups)."""
-    if case == "wide":
+    """The kernel against the plain scan on the card, bit-equal, with one
+    launch counted: B from 8 to 256 (the wide case: [64, 65536] in 256
+    groups), and at the edges of the layout (one member a group, one
+    warp of members and one past it, eight a lane, past the sort in
+    registers, the wrapper's largest group) with an all-ties row, a row
+    wanting more than its caps and a group with no admissible member; and
+    costs too wide for the 32-bit sort key."""
+    if case == "B=MAX_BLOCK":
+        d = _edge_case(TC.MAX_BLOCK, seed=12)
+    elif case.startswith("B="):
+        d = _edge_case(int(case[2:]), seed=int(case[2:]))
+    elif case == "costs past 2^23":
+        d = _edge_case(40, seed=23, cost_hi=T.INF_COST)
+    elif case == "wide":
         rng = np.random.default_rng(9)
         E, K, B = 64, 256, 256
         M2 = K * B
