@@ -65,7 +65,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    iteration, and its split by stage is printed;
 5. the kernels again at the main path's own wave solves (the captured
    operands of its widest B2 solve and of its first disaggregation),
-   against their plain versions, after the path's launches were read.
+   against their plain versions, after the path's launches were read;
+6. the device-resident operand cache: a seeded [128, 10240] instance
+   through ``solve_transport`` (cold, five warm re-solves after 1% of the
+   columns' capacities and costs change, one past the cache's wholesale
+   gate, then five more padded shapes for its LRU of four), with
+   ``POSEIDON_RESIDENT`` at its default and off: every solution field
+   equal, fewer bytes uploaded per warm solve with the cache on, the
+   resident tensors equal to their host copies; per solve the bytes
+   uploaded, ``solve.upload``'s host and device time and ``solve.device``;
+7. the glue drive: a FakeKube holding the main path's cluster (10,000
+   nodes, 100,000 pods) brought in by the port's watchers through its
+   client to its server on the card, the checkpoint saved, then the wave
+   and three churn rounds (1% of the pods deleted and recreated), each
+   ``schedule_once()``: every round certifies and binds every pod, and
+   FakeKube's bindings equal the scheduler's view; the glue's and the
+   server's ``/metrics`` carry the loop and round series; a
+   ``MetricsAgent`` push lands; then a server restored from the glue's
+   checkpoint drives the wave directly with byte-identical deltas.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--compare N`` prints,
@@ -1089,20 +1106,30 @@ def _send(method, requests, ok_type, batch=2048):
                 fail(f"unexpected reply {f.result()}")
 
 
+# bench.py's three machine shapes: (cpu, ram).
+MACHINE_SHAPES = [(16000, 64 << 20), (32000, 128 << 20), (64000, 256 << 20)]
+
+
+def _task_shapes():
+    """The TASK_SHAPES task shapes (cpu, ram) and each task's shape, seed
+    SEED."""
+    rng = np.random.default_rng(SEED)
+    ec_cpu = rng.integers(100, 4000, size=TASK_SHAPES)
+    ec_ram = rng.integers(1 << 18, 1 << 22, size=TASK_SHAPES)
+    ec_of_task = rng.integers(0, TASK_SHAPES, size=TASKS)
+    return ec_cpu, ec_ram, ec_of_task
+
+
 def _population():
     """bench.py's recipe: 3 machine shapes (64 slots each), TASK_SHAPES
     task shapes of uniform multiplicity, seed SEED."""
     from poseidon_tpu_torch.utils.ids import generate_uuid, task_uid
 
-    shapes = [(16000, 64 << 20), (32000, 128 << 20), (64000, 256 << 20)]
     nodes = [
-        _node(generate_uuid(f"bench-m{i}"), *shapes[i % 3], 64)
+        _node(generate_uuid(f"bench-m{i}"), *MACHINE_SHAPES[i % 3], 64)
         for i in range(MACHINES)
     ]
-    rng = np.random.default_rng(SEED)
-    ec_cpu = rng.integers(100, 4000, size=TASK_SHAPES)
-    ec_ram = rng.integers(1 << 18, 1 << 22, size=TASK_SHAPES)
-    ec_of_task = rng.integers(0, TASK_SHAPES, size=TASKS)
+    ec_cpu, ec_ram, ec_of_task = _task_shapes()
     tasks = []
     for i in range(TASKS):
         e = int(ec_of_task[i])
@@ -1693,6 +1720,410 @@ def main_path(capture):
     return results, launches, ring_cost
 
 
+# ------------------------------------------------------ resident phase
+
+# The resident phase's warm re-solve sequence: one [128, 10240] instance
+# solved cold, then warm after 1% of its columns change (capacities and
+# costs), then warm past the cache's wholesale gate (M_pad / 4 columns),
+# then once at each of five more padded shapes (the cache keeps four).
+RESIDENT_SHAPE = (128, 10240)
+RESIDENT_WARM = 5
+RESIDENT_WHOLESALE_COLS = 3000
+RESIDENT_MORE_SHAPES = (1500, 2600, 3600, 4700, 6000)
+SOLUTION_ARRAYS = ("flows", "unsched", "prices", "phase_iters")
+
+
+def _resident_steps():
+    """(label, costs, supply, cap, unsched, warm) of the sequence."""
+    E, M = RESIDENT_SHAPE
+    rng = np.random.default_rng(SEED + 9)
+    costs, supply, cap, unsched, _ = _instance(
+        E, M, SEED + 9, supply_lo=40, supply_hi=400, cap_lo=1, cap_hi=8)
+    steps = [("cold", costs, supply, cap, unsched, False)]
+
+    def change(costs, cap, n):
+        costs, cap = costs.copy(), cap.copy()
+        cols = rng.choice(M, size=n, replace=False)
+        costs[:, cols] = rng.integers(0, 1000, size=(E, n))
+        cap[cols] = rng.integers(1, 8, size=n)
+        return costs, cap
+
+    for i in range(RESIDENT_WARM):
+        costs, cap = change(costs, cap, M // 100)
+        steps.append((f"warm{i + 1}", costs, supply, cap, unsched, True))
+    costs, cap = change(costs, cap, RESIDENT_WHOLESALE_COLS)
+    steps.append(("wholesale", costs, supply, cap, unsched, True))
+    for m in RESIDENT_MORE_SHAPES:
+        c, s_, k, u, _ = _instance(E, m, SEED + m, supply_lo=40,
+                                   supply_hi=400, cap_lo=1, cap_hi=8)
+        steps.append((f"shape M={m}", c, s_, k, u, False))
+    return steps
+
+
+def _resident_run(steps):
+    """Solve the sequence through ``solve_transport`` on the card; per
+    solve the operand bytes uploaded (counted at the upload seam,
+    ``transport._upload``), ``solve.upload``'s host and device seconds and
+    ``solve.device``'s."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.utils import stagetimer
+
+    real_upload = T._upload
+    sent = [0]
+
+    def upload(a, device):
+        sent[0] += a.nbytes
+        return real_upload(a, device)
+
+    T._upload = upload
+    T._RESIDENT.clear()
+    sols, rows = [], []
+    prev = None
+    try:
+        for label, costs, supply, cap, unsched, warm in steps:
+            kw = {}
+            if warm:
+                kw = dict(init_flows=prev.flows, init_prices=prev.prices,
+                          init_unsched=prev.unsched)
+            stagetimer.reset()
+            sent[0] = 0
+            calls0 = T.device_call_count()
+            prev = T.solve_transport(costs, supply, cap, unsched,
+                                     device=DEVICE, **kw)
+            if DEVICE.type == "cuda":
+                torch.cuda.synchronize()
+            host = stagetimer.snapshot()
+            dev = stagetimer.device_snapshot()
+            sols.append(prev)
+            rows.append({
+                "label": label, "shape": list(T.padded_shape(*costs.shape)),
+                "bytes": sent[0],
+                "device_solves": T.device_call_count() - calls0,
+                "upload_host_s": host.get("solve.upload", (0.0, 0))[0],
+                "upload_device_s": dev.get("solve.upload", (0.0, 0))[0],
+                "solve_device_s": host.get("solve.device", (0.0, 0))[0],
+                "iterations": prev.iterations,
+            })
+    finally:
+        T._upload = real_upload
+    return sols, rows
+
+
+def resident_phase() -> dict:
+    """The device-resident operand cache on the card: the sequence with
+    ``POSEIDON_RESIDENT`` at its default (on on CUDA) and then off, every
+    solution field equal between the two; warm solves upload fewer bytes
+    with the cache on; the resident tensors equal their host copies after
+    the sequence.  The host certificate is off in this phase so that
+    every solve uploads its operand."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.utils import stagetimer
+
+    steps = _resident_steps()
+    _set_env("POSEIDON_HOST_CERT", "0")
+    stagetimer.set_device_timing(True)
+    try:
+        _set_env("POSEIDON_RESIDENT", None)
+        if not T.accel_policy("POSEIDON_RESIDENT", DEVICE):
+            fail("the resident cache is off by default on the card")
+        on, rows_on = _resident_run(steps)
+        resident = {k: v for k, v in T._RESIDENT.items()}
+        for key, entry in resident.items():
+            if entry["dev"].device.type != "cuda":
+                fail(f"resident operand {key} is not on the card")
+            if not np.array_equal(entry["dev"].cpu().numpy(),
+                                  entry["host"]):
+                fail(f"resident operand {key} differs from its host copy")
+        _set_env("POSEIDON_RESIDENT", "0")
+        off, rows_off = _resident_run(steps)
+        if T._RESIDENT:
+            fail("the resident cache filled with POSEIDON_RESIDENT=0")
+    finally:
+        _set_env("POSEIDON_RESIDENT", None)
+        _set_env("POSEIDON_HOST_CERT", None)
+        stagetimer.set_device_timing(False)
+    for (label, *_), a, b in zip(steps, on, off):
+        for f in SOLUTION_FIELDS:
+            if getattr(a, f) != getattr(b, f):
+                fail(f"[resident] {label}: {f} differs with the cache on "
+                     "and off")
+        for f in SOLUTION_ARRAYS:
+            if not np.array_equal(np.asarray(getattr(a, f)),
+                                  np.asarray(getattr(b, f))):
+                fail(f"[resident] {label}: {f} differs with the cache on "
+                     "and off")
+    for a, b in zip(rows_on, rows_off):
+        if a["device_solves"] != 1 or b["device_solves"] != 1:
+            fail(f"[resident] {a['label']}: not one device solve")
+        if a["label"].startswith("warm") and a["bytes"] >= b["bytes"]:
+            fail(f"[resident] {a['label']}: {a['bytes']} bytes uploaded "
+                 f"with the cache on, {b['bytes']} with it off")
+        log(f"  [resident] {a['label']} {a['shape']}: bytes on/off "
+            f"{a['bytes']}/{b['bytes']}; solve.upload host "
+            f"{a['upload_host_s'] * 1e3:.3f}/{b['upload_host_s'] * 1e3:.3f}"
+            f" ms, device {a['upload_device_s'] * 1e3:.3f}/"
+            f"{b['upload_device_s'] * 1e3:.3f} ms; solve.device "
+            f"{a['solve_device_s'] * 1e3:.3f}/"
+            f"{b['solve_device_s'] * 1e3:.3f} ms; iterations "
+            f"{a['iterations']}")
+    kept = sorted(tuple(k) for k in resident)
+    log(f"  [resident] every solution field equal with the cache on and "
+        f"off over {len(steps)} solves; resident shapes kept {kept}, each "
+        f"equal to its host copy")
+    return {"on": rows_on, "off": rows_off, "kept": kept}
+
+
+# ---------------------------------------------------------- glue drive
+
+GLUE_CHURN_ROUNDS = 3
+# Seconds the watchers get to bring the whole cluster in (the load runs
+# 110k RPCs through the watchers' workers) or a churn round's changes.
+GLUE_LOAD_TIMEOUT_S = 900.0
+GLUE_CHURN_TIMEOUT_S = 300.0
+GLUE_SPANS = ("glue.flush_resubmits", "glue.schedule_rpc", "glue.enact",
+              "glue.reconcile")
+
+
+def _glue_cluster():
+    """``_population``'s cluster as Kubernetes objects in a FakeKube:
+    the same three node shapes and TASK_SHAPES pod shapes with the same
+    multiplicity, each pod owned by its shape's job."""
+    from poseidon_tpu_torch.glue.fake_kube import FakeKube, Node, Pod
+
+    kube = FakeKube()
+    for i in range(MACHINES):
+        cpu, ram = MACHINE_SHAPES[i % 3]
+        kube.add_node(Node(name=f"bench-m{i}", cpu_capacity=cpu,
+                           ram_capacity=ram))
+    ec_cpu, ec_ram, ec_of_task = _task_shapes()
+    for i in range(TASKS):
+        e = int(ec_of_task[i])
+        kube.create_pod(Pod(name=f"bench-p{i}", owner_uid=f"bench-job-{e}",
+                            cpu_request=int(ec_cpu[e]),
+                            ram_request=int(ec_ram[e])))
+    return kube
+
+
+def _glue_check_round(label, kube, glue, state):
+    """Every pod bound, and FakeKube's bindings equal to the scheduler's
+    view (task -> machine) one for one."""
+    from poseidon_tpu_torch.graph.state import TaskState
+
+    truth = {}
+    for p in kube.pods.values():
+        if p.phase != "Running" or not p.node_name:
+            fail(f"[glue] {label}: pod {p.key} is {p.phase}, not bound")
+        truth[p.key] = p.node_name
+    view = {}
+    for uid, task in state.tasks.items():
+        if task.state != TaskState.RUNNING:
+            continue
+        pod = glue.shared.task_for_uid(uid)
+        node = glue.shared.node_for_resource(task.scheduled_to)
+        if pod is None or node is None:
+            fail(f"[glue] {label}: the scheduler runs task {uid} on "
+                 f"{task.scheduled_to}, which the glue cannot resolve")
+        view[pod.key] = node
+    if view != truth:
+        diff = sorted(set(view.items()) ^ set(truth.items()))[:5]
+        fail(f"[glue] {label}: FakeKube's bindings ({len(truth)}) differ "
+             f"from the scheduler's view ({len(view)}): {diff}")
+
+
+def _scrape(address):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{address}/metrics",
+                                timeout=30) as r:
+        return r.read().decode()
+
+
+def glue_drive():
+    """The glue process on the main path's cluster at full size: a
+    FakeKube with 10,000 nodes and 100,000 pods, the port's server on the
+    card, the port's ``Poseidon`` glue (``run_loop=False``) against it
+    over 127.0.0.1 with the port's client.  The watchers bring the whole
+    cluster in; the server saves its checkpoint before any round; then
+    the wave and GLUE_CHURN_ROUNDS churn rounds (1% of the running pods
+    deleted and recreated through FakeKube), each ``schedule_once()``.
+    Every round certifies and binds every pod, with FakeKube's truth
+    equal to the scheduler's view; one scrape of the glue's and the
+    server's ``/metrics`` shows the loop and round series; one
+    ``MetricsAgent`` push lands in the knowledge base.  Then a server
+    restored from the glue's checkpoint drives the wave directly
+    (``drive``): its deltas must be byte-identical to the glue's wave."""
+    from poseidon_tpu_torch.glue.metrics_agent import MetricsAgent
+    from poseidon_tpu_torch.glue.poseidon import Poseidon
+    from poseidon_tpu_torch.obs import trace as obs_trace
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.protos import firmament_pb2 as fpb
+    from poseidon_tpu_torch.protos import stats_pb2 as spb
+    from poseidon_tpu_torch.service.server import FirmamentTPUServer
+    from poseidon_tpu_torch.utils import stagetimer
+    from poseidon_tpu_torch.utils.config import (
+        FirmamentTPUConfig,
+        PoseidonConfig,
+    )
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    ckpt = out / "glue.json"
+    for stale in (ckpt, Path(str(ckpt) + ".warm.npz")):
+        stale.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    kube = _glue_cluster()
+    log(f"  [glue] FakeKube built: {len(kube.nodes)} nodes, "
+        f"{len(kube.pods)} pods in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 2)
+    cfg = FirmamentTPUConfig(precompile=True, device=DEVICE.type,
+                             checkpoint_path=str(ckpt),
+                             metrics_address="127.0.0.1:0")
+    rounds = []
+    with FirmamentTPUServer(cfg, address="127.0.0.1:0") as srv, \
+            _CoarseWatch() as watch, _GcClock() as gcc:
+        srv.servicer.ensure_precompiled()
+        st = srv.servicer.state
+        if not st.native_loaded:
+            fail("[glue] the server's native graph core is not loaded")
+        gcfg = PoseidonConfig(firmament_address=srv.address,
+                              scheduling_interval=3600,
+                              metrics_address="127.0.0.1:0")
+        glue = Poseidon(kube, config=gcfg, stats_address="127.0.0.1:0",
+                        run_loop=False)
+        t0 = time.perf_counter()
+        glue.start(health_timeout=60)
+        try:
+            if not glue.drain_watchers(timeout=GLUE_LOAD_TIMEOUT_S):
+                fail(f"[glue] the watchers did not bring the cluster in "
+                     f"within {GLUE_LOAD_TIMEOUT_S:.0f} s")
+            load_s = time.perf_counter() - t0
+            if (len(st.machines), len(st.tasks)) != (MACHINES, TASKS):
+                fail(f"[glue] the server holds {len(st.machines)} machines,"
+                     f" {len(st.tasks)} pods after the load")
+            t1 = time.perf_counter()
+            srv.servicer.save_checkpoint()
+            log(f"  [glue] watchers brought {MACHINES} nodes, {TASKS} pods "
+                f"in over gRPC in {load_s:.1f} s; checkpoint saved in "
+                f"{time.perf_counter() - t1:.1f} s")
+            # The tracer in timing mode for the rounds (not the load, which
+            # it would slow): the glue's span totals per round.
+            _set_env("POSEIDON_STAGE_TIMERS", "1")
+            for r in range(GLUE_CHURN_ROUNDS + 1):
+                kind = "wave" if r == 0 else f"churn{r}"
+                churn_s = 0.0
+                if r > 0:
+                    running = sorted(kube.pods)
+                    pick = rng.choice(len(running), size=len(running) // 100,
+                                      replace=False)
+                    t1 = time.perf_counter()
+                    for k in pick:
+                        p = kube.pods[running[k]]
+                        kube.delete_pod(p.namespace, p.name)
+                        kube.create_pod(type(p)(
+                            name=p.name, namespace=p.namespace,
+                            owner_uid=p.owner_uid,
+                            cpu_request=p.cpu_request,
+                            ram_request=p.ram_request))
+                    if not glue.drain_watchers(timeout=GLUE_CHURN_TIMEOUT_S):
+                        fail(f"[glue] {kind}: the watchers did not drain")
+                    churn_s = time.perf_counter() - t1
+                _kernels.reset_launches()
+                stagetimer.reset()
+                obs_trace.reset_totals()
+                watch.take()
+                gcc.take()
+                routes0 = dict(T._Telemetry.routes)
+                t1 = time.perf_counter()
+                deltas = glue.schedule_once()
+                wall = time.perf_counter() - t1
+                spans = obs_trace.snapshot_totals()
+                launches = dict(_kernels.LAUNCHES)
+                coarse, seam_reads = watch.take()
+                glue._observe_metrics()
+                m = srv.servicer.planner.last_metrics
+                if m.gap_bound != 0.0 or not m.converged:
+                    fail(f"[glue] {kind} did not certify (gap_bound "
+                         f"{m.gap_bound})")
+                if not glue.drain_watchers(timeout=GLUE_CHURN_TIMEOUT_S):
+                    fail(f"[glue] {kind}: the binding events did not drain")
+                _glue_check_round(kind, kube, glue, st)
+                rec = dict(
+                    kind=kind, wall_s=wall, churn_s=churn_s,
+                    deltas=fpb.SchedulingDeltas(
+                        deltas=deltas).SerializeToString(),
+                    placed=m.placed, objective=m.objective,
+                    iterations=m.iterations, launches=launches,
+                    coarse=coarse, seam_reads=seam_reads,
+                    routes={f"{k[0]}[{k[1]}, {k[2]}]": n - routes0.get(k, 0)
+                            for k, n in sorted(T._Telemetry.routes.items())
+                            if n > routes0.get(k, 0)},
+                    spans={k: spans.get(k, (0.0, 0))[0] for k in GLUE_SPANS},
+                    stages={k: v[0]
+                            for k, v in stagetimer.snapshot().items()},
+                    gc=gcc.take(), loop=dict(vars(glue.loop_stats)),
+                )
+                rounds.append(rec)
+                log(f"  [glue] {kind}: schedule_once {wall:.3f} s (churn "
+                    f"through the watchers {churn_s:.1f} s), placed "
+                    f"{m.placed}, objective {m.objective}, iterations "
+                    f"{m.iterations}, launches {launches}, solves by route "
+                    f"{rec['routes']}, coarse start {coarse}; every pod "
+                    f"bound, FakeKube equal to the scheduler's view")
+                log("    glue spans (s): " + json.dumps(rec["spans"]))
+                log("    server stages (s): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sorted(
+                        rec["stages"].items(), key=lambda kv: -kv[1])))
+            glue_text = _scrape(glue.metrics_server.address)
+            srv_text = _scrape(srv.metrics_server.address)
+            for name, text in (("glue", glue_text), ("server", srv_text)):
+                for series in ("poseidon_loop_rounds_total "
+                               f"{GLUE_CHURN_ROUNDS + 1}",
+                               f"poseidon_round_placed {rounds[-1]['placed']}",
+                               "poseidon_client_rpc_attempts_total"):
+                    if series not in text:
+                        fail(f"[glue] the {name}'s /metrics lacks {series!r}")
+            pod = next(iter(kube.pods.values()))
+            node = kube.nodes[pod.node_name]
+
+            def source():
+                return ([spb.NodeStats(hostname=node.name,
+                                       cpu_utilization=0.5,
+                                       mem_utilization=0.25)],
+                        [spb.PodStats(name=pod.name, namespace=pod.namespace,
+                                      cpu_usage=50, mem_usage=1 << 10)])
+
+            kb0 = (sum(len(e.samples) for e in st.node_kb.values()),
+                   sum(len(e.samples) for e in st.task_kb.values()))
+            agent = MetricsAgent(source, glue.stats_server.address)
+            try:
+                pushed = agent.push_once()
+            finally:
+                agent.stop()
+            kb1 = (sum(len(e.samples) for e in st.node_kb.values()),
+                   sum(len(e.samples) for e in st.task_kb.values()))
+            if pushed != (1, 1) or kb1 != (kb0[0] + 1, kb0[1] + 1):
+                fail(f"[glue] the MetricsAgent push did not land: "
+                     f"{pushed}, knowledge base {kb0} -> {kb1}")
+            log(f"  [glue] /metrics of the glue ({len(glue_text)} bytes) and "
+                f"the server ({len(srv_text)} bytes) show the loop and round "
+                f"series; one MetricsAgent push landed in the knowledge base")
+        finally:
+            glue.stop()
+            _set_env("POSEIDON_STAGE_TIMERS", None)
+    del kube
+    _check_path("glue", rounds)
+    direct = drive("glue-restored", ckpt, [], 0)
+    if direct[0]["deltas"] != rounds[0]["deltas"]:
+        fail("the wave driven from the glue's checkpoint differs from the "
+             "glue's wave")
+    log(f"  [glue] the wave driven directly from the glue's checkpoint: "
+        f"deltas byte-identical to the glue's wave "
+        f"({len(rounds[0]['deltas'])} bytes); wall {direct[0]['wall_s']:.3f}"
+        f" s against the glue's {rounds[0]['wall_s']:.3f} s")
+    return {"load_s": load_s, "rounds": rounds, "restored": direct}
+
+
 def main_path_cases(capture):
     """The main path's own wave solves, as kernel cases: the widest solve
     each kernel route takes other than the coarse [E, 256] start (a kernel
@@ -1931,6 +2362,14 @@ def main(argv) -> int:
     np.savez(SEAM_FILE, **cases["disagg"][1])
     log("kernels: the disaggregation at the main path's seam")
     disagg += check_coarse_disaggregate([cases["disagg"]])
+    log("resident operand cache: a warm re-solve sequence at [128, 10240], "
+        "the cache on and off")
+    resident = resident_phase()
+    log("glue drive: FakeKube -> watchers -> client -> server, "
+        f"{MACHINES} nodes / {TASKS} pods")
+    glue = glue_drive()
+    launches["glue"] = _path_launches(glue["rounds"])
+    launches["glue-restored"] = _path_launches(glue["restored"])
     # Output check: the wave placed pods and every round certified (the
     # drive fails otherwise); the churn rounds re-placed the churned pods.
     wave = results["main"]
@@ -1962,6 +2401,24 @@ def main(argv) -> int:
              **r["gc"]}
             for r in rs]
     log("stages by drive: " + json.dumps(summary))
+    log("resident phase, per solve, cache on / off: " + json.dumps(
+        {"card": info["smi"], "kept": resident["kept"], "solves": [
+            {"label": a["label"], "shape": a["shape"],
+             "bytes": [a["bytes"], b["bytes"]],
+             "upload_host_s": [a["upload_host_s"], b["upload_host_s"]],
+             "upload_device_s": [a["upload_device_s"], b["upload_device_s"]],
+             "solve_device_s": [a["solve_device_s"], b["solve_device_s"]]}
+            for a, b in zip(resident["on"], resident["off"])]}))
+    log("glue drive: " + json.dumps(
+        {"card": info["smi"], "load_s": glue["load_s"], "rounds": [
+            {"kind": r["kind"], "schedule_once_s": r["wall_s"],
+             "churn_s": r["churn_s"], "placed": r["placed"],
+             "spans": r["spans"], "loop": r["loop"], **r["gc"],
+             **{k: r["stages"].get(k) for k in (
+                 "solve.device", "round.view_build", "round.assign",
+                 "round.solve_band", "round.cost_build")}}
+            for r in glue["rounds"]],
+         "restored_wave_s": glue["restored"][0]["wall_s"]}))
     print(info["smi"], flush=True)
     print(json.dumps(kernels_record(fused, tiled, gu, disagg, launches)),
           flush=True)

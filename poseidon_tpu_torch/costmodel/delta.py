@@ -39,12 +39,12 @@ full rebuild for that round.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
 from poseidon_tpu_torch.utils.hatches import hatch_bool, hatch_int
+from poseidon_tpu_torch.utils.locks import TrackedLock
 from poseidon_tpu_torch.costmodel.base import (
     CostMatrices,
     CostModel,
@@ -130,7 +130,9 @@ class CostPlaneCache:
         # wrong-result, only wasted.  Own lock: the pusher and the
         # builders (round thread + pipeline worker) are different
         # threads.
-        self._ingest_lock = threading.Lock()
+        self._ingest_lock = TrackedLock(
+            "costmodel.CostPlaneCache._ingest_lock"
+        )
         self._hint_rows: set = set()   # dirty EC ids
         self._hint_cols: set = set()   # dirty machine uuids
         self.ingest_hints_applied = 0  # rows+cols forced dirty by hints

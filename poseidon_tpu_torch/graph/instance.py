@@ -21,10 +21,12 @@ pruned-plane solve with its excluded-column certificate cache
 (ops/transport_pruned.py), delta-maintained cost planes
 (costmodel/delta.py), cross-band cost-build pipelining
 (graph/pipeline.py) and the overlapped EC->task assignment, with the
-host two-dispatch coarse start.  The worker threads of the last two do
-host numpy only; every device solve runs on the calling thread.  Left
-out: the sharded tier, the chained wave, the ``ssp`` solver, the fused
-coarse program and the streaming engine's branches.
+one-program coarse start and the streaming engine's branches
+(``POSEIDON_STREAMING``: the admission cut, the plane cache's ingest
+hints and the cross-round speculative cost build).  The worker threads
+of the pipeline and the assignment do host numpy only; every device
+solve runs on the calling thread.  Left out: the sharded tier, the
+chained wave and the ``ssp`` solver.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from poseidon_tpu_torch.costmodel.base import CostModel, slice_ecs
 from poseidon_tpu_torch.costmodel.delta import CostPlaneCache
 from poseidon_tpu_torch.graph.pipeline import CostPipeline, pipelining_enabled
 from poseidon_tpu_torch.graph.state import ClusterState
+from poseidon_tpu_torch.obs import history as _history
 from poseidon_tpu_torch.ops import transport_pruned as tp
 from poseidon_tpu_torch.ops.transport import (
     INF_COST,
@@ -148,6 +151,19 @@ class RoundMetrics:
     solve_tier: str = "none"
     # False when a band's solve exhausted its budget even on a cold retry.
     converged: bool = True
+    # Streaming round engine (POSEIDON_STREAMING).  overlap_fraction:
+    # share of this round's wall time that ran concurrently with the
+    # previous round's tail (cross-round speculative cost build plus the
+    # cross-band pipeline's in-solve overlap); 0.0 in the synchronous
+    # loop.  admission_deferred: watcher deltas that arrived after this
+    # round's admission cut and rolled to round N+1.
+    # admission_staleness_s: age of the OLDEST delta admitted into this
+    # round at the cut (the bounded-staleness bound actually realized).
+    # placements_per_sec is stamped by schedule_round (placed / total
+    # wall), in both loop modes.
+    overlap_fraction: float = 0.0
+    admission_deferred: int = 0
+    admission_staleness_s: float = 0.0
     placements_per_sec: float = 0.0
 
     def to_dict(self) -> dict:
@@ -380,6 +396,14 @@ class RoundPlanner:
         self._cost_cols_rebuilt = 0
         self._pipeline_overlap = 0.0
         self._tier_rank = -1
+        # Submission time of the cross-ROUND speculation (streaming round
+        # engine): set when this round, on its way out, speculates the
+        # next round's first cost build on frozen final usage.  None when
+        # no cross-round spec was submitted this round.  The next round
+        # harvests the spec's realized run time into _cross_overlap_prev
+        # at its admission cut.
+        self._cross_spec_t = None
+        self._cross_overlap_prev = 0.0
         # Per-band convergence curves ((band, SolveTelemetry) pairs)
         # collected this round, and their JSON-safe digests.
         self._telem_curves: list = []
@@ -478,6 +502,11 @@ class RoundPlanner:
             metrics.placements_per_sec = round(
                 metrics.placed / metrics.total_seconds, 3
             )
+        # Round-history ring (/debug/rounds): every completed round lands
+        # here, so a live process is interrogable.
+        _history.default_history().record(
+            metrics.to_dict(), curves=self.last_solve_curves
+        )
         return deltas, metrics
 
     def _schedule_round(self) -> Tuple[List[Delta], RoundMetrics]:
@@ -512,6 +541,29 @@ class RoundPlanner:
             view = st.build_round_view(
                 include_running=self.reschedule_running
             )
+        # Admission cut (the streaming bounded-staleness batcher): the
+        # view snapshot IS the round's input set — everything that
+        # arrived before it is admitted, later arrivals roll to round
+        # N+1 (counted as admission_deferred at round end).  The dirty
+        # hints ride to the plane cache's continuous-ingest seam only
+        # under streaming; the synchronous loop discards them so its
+        # delta-rebuild accounting stays exactly as before.
+        streaming = hatch_bool("POSEIDON_STREAMING")
+        _admitted, adm_stale = st.admission_cut()
+        ing_rows, ing_cols = st.take_ingest_hints()
+        if streaming:
+            self._plane_cache.set_round_hints(ing_rows, ing_cols)
+        # Harvest the PREVIOUS round's cross-round speculation: every
+        # second its build ran after submission — the previous round's
+        # own tail, the glue side's enactment, RPC transit — is work
+        # THIS round would otherwise pay inside its own wall time, so
+        # it is credited here as realized cross-round overlap.
+        self._cross_overlap_prev = 0.0
+        if (streaming and self._cross_spec_t is not None
+                and self._cost_pipeline is not None):
+            self._cross_overlap_prev = self._cost_pipeline.overlap_with(
+                self._cross_spec_t, time.perf_counter()
+            )
         ecs, mt = view.ecs, view.machines
         if not self.pod_affinity:
             ecs.pod_affinity = None
@@ -521,6 +573,7 @@ class RoundPlanner:
             num_tasks=int(ecs.supply.sum()),
             num_machines=mt.num_machines,
         )
+        metrics.admission_staleness_s = round(adm_stale, 6)
         if ecs.num_ecs == 0:
             st.round_index += 1
             self._last_generation = st.generation
@@ -611,7 +664,20 @@ class RoundPlanner:
         # Any task left off a machine moves the starvation escalator next
         # round, so the quiet-round fast path must not trigger.
         self._last_unscheduled = metrics.unscheduled + metrics.preempted
+        # Arrivals that landed after this round's admission cut: they
+        # are round N+1's input set (the bounded-staleness batcher's
+        # deferred side).
+        metrics.admission_deferred = st.pending_ingest()
         metrics.total_seconds = time.perf_counter() - t0
+        # Realized round overlap: the cross-band pipeline's in-solve
+        # concurrency plus the previous round's cross-round speculation
+        # harvested at this round's start.  A fraction of the round's
+        # wall — 0.0 in the fully synchronous configuration.
+        overlap = self._pipeline_overlap + self._cross_overlap_prev
+        if metrics.total_seconds > 0 and overlap > 0:
+            metrics.overlap_fraction = round(
+                min(1.0, overlap / metrics.total_seconds), 6
+            )
         self.last_metrics = metrics
         return deltas, metrics
 
@@ -847,12 +913,16 @@ class RoundPlanner:
         phase_sums = None
         remaining = sorted(set(bands.tolist()))
         pipe = self._maybe_pipeline(len(remaining))
+        self._cross_spec_t = None
+        first_band, first_idx = None, None
         while remaining:
             n_bands, idx = self._next_band_group(
                 remaining, bands, ecs, mt, committed_cpu, committed_ram,
                 committed_net,
             )
             band = int(remaining[0])  # warm-frame key: group's largest
+            if first_band is None:
+                first_band, first_idx = band, idx
             remaining = remaining[n_bands:]
             ecs_b = slice_ecs(ecs, idx)
             mt_b = _with_usage(
@@ -932,6 +1002,32 @@ class RoundPlanner:
                 # reading this band's rows races nothing.
                 on_band(idx, not remaining, flows_full)
 
+        # No small-band floor here (unlike the cross-band speculation
+        # above): the cross-round spec runs while the worker is
+        # otherwise IDLE — the glue side is enacting — so even a build
+        # the delta cache declines is pure overlap, not contention.
+        if (pipe is not None and first_idx is not None
+                and hatch_bool("POSEIDON_STREAMING")):
+            # Cross-ROUND speculation (streaming round engine): while the
+            # glue side enacts this round's deltas, the pipeline worker
+            # pre-builds next round's first band against the FINAL
+            # committed usage.  Next round's authoritative pipe.build
+            # joins it and delta-patches whatever the admitted watcher
+            # deltas actually dirtied — the cross-band contract, so a
+            # wrong speculation is never a wrong result.
+            pipe.speculate(
+                first_band,
+                slice_ecs(ecs, first_idx),
+                _with_usage(
+                    mt, committed_cpu.copy(), committed_ram.copy(),
+                    committed_net.copy(),
+                    np.maximum(
+                        base_slots - committed_slots, 0
+                    ).astype(np.int32),
+                ),
+            )
+            self._cross_spec_t = time.perf_counter()
+
         metrics.objective = objective
         metrics.gap_bound = gap
         metrics.iterations = iters + self._hidden_iters
@@ -984,8 +1080,11 @@ class RoundPlanner:
         """The cross-band pipeline, when it can pay: more than one band
         group to ladder through, the delta plane cache live (a
         speculative build must warm the cache, or joining it buys
-        nothing), and the env gate open."""
-        if n_bands < 2:
+        nothing), and the env gate open.  Under the streaming round
+        engine a SINGLE band still wants the pipeline — the speculation
+        runs across rounds (next round's first build overlaps this
+        round's enactment), not across bands."""
+        if n_bands < 2 and not hatch_bool("POSEIDON_STREAMING"):
             return None
         if not pipelining_enabled() or not self._plane_cache.enabled():
             return None

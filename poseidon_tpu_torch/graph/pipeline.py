@@ -25,11 +25,11 @@ build is timed as its own stage, ``round.cost_build_spec``.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Optional
 
 from poseidon_tpu_torch.utils.hatches import hatch_bool
+from poseidon_tpu_torch.utils.locks import TrackedLock
 from poseidon_tpu_torch.utils.stagetimer import stage as _stage
 
 ENV_GATE = "POSEIDON_PIPELINE_BANDS"
@@ -56,7 +56,7 @@ class CostPipeline:
 
     def __init__(self, cache) -> None:
         self._cache = cache
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("graph.CostPipeline._lock")
         self._pool = None
         self._future = None
         self._spec: Optional[_Spec] = None

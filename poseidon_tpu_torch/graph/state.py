@@ -23,6 +23,7 @@ from __future__ import annotations
 import enum
 import logging
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
@@ -236,8 +237,21 @@ class ClusterState:
         self.node_kb: Dict[str, _KBEntry] = {}
         self.round_index = 0
         # Monotonic generation, bumped on every mutation; lets the planner
-        # skip rebuild work on quiet rounds.
-        self.generation = 0
+        # skip rebuild work on quiet rounds.  Writes route through the
+        # property below: every externally-driven bump (the watcher RPCs)
+        # also stamps the continuous-ingest log the streaming admission
+        # batcher cuts.  ``apply_placements`` — the scheduler's own round
+        # commit — bumps ``_generation`` directly; it is not ingest.
+        self._generation = 0
+        # Continuous-ingest accounting (POSEIDON_STREAMING): arrival
+        # timestamps of mutations not yet admitted into a round (cleared
+        # at each admission cut; bounded — see _INGEST_LOG_CAP), an
+        # admitted-arrival counter, and dirty-hint sets (EC ids / machine uuids) feeding the cost-
+        # plane cache's ingest seam.  All under self._lock.
+        self._ingest_log: deque = deque()
+        self._ingest_count = 0
+        self._ingest_ecs: Set[int] = set()
+        self._ingest_machines: Set[str] = set()
         # Live count of tasks carrying pod-level (anti-)affinity: the
         # resident-label machinery is inert while zero.
         self._pod_selector_tasks = 0
@@ -276,6 +290,70 @@ class ClusterState:
         """Whether this state mirrors into the native graph core."""
         return self._native is not None
 
+    # -------------------------------------------------- continuous ingest
+
+    # Timestamp-log bound: past this many un-admitted arrivals the log
+    # stops recording timestamps (the COUNT keeps counting) — staleness
+    # needs only the oldest entry, which is preserved.
+    _INGEST_LOG_CAP = 65536
+
+    @property
+    def generation(self) -> int:
+        return self._generation
+
+    @generation.setter
+    def generation(self, value: int) -> None:
+        # Mutators write ``self.generation += 1``; routing the write
+        # here stamps the ingest log without touching every bump site.
+        # Callers hold self._lock (the mutators' own critical sections).
+        if value > self._generation:
+            now = time.monotonic()
+            if len(self._ingest_log) < self._INGEST_LOG_CAP:
+                self._ingest_log.append(now)
+            self._ingest_count += 1
+        self._generation = value
+
+    def _ingest_hint(self, ec: Optional[int] = None,
+                     machine: Optional[str] = None) -> None:
+        """Dirty-hint detail for the cost-plane cache's ingest seam
+        (costmodel/delta.py): which EC row / machine column this
+        mutation touched.  Caller holds the lock."""
+        if ec is not None:
+            self._ingest_ecs.add(int(ec))
+        if machine is not None:
+            self._ingest_machines.add(machine)
+
+    def admission_cut(self) -> Tuple[int, float]:
+        """Cut the streaming admission window (called at the round's
+        view build): everything that arrived before the cut is admitted
+        into this round, and the log resets so later arrivals count as
+        deferred.  Returns ``(admitted, oldest_age_s)`` — the count of
+        admitted arrivals and the age of the oldest one, i.e. the
+        bounded-staleness bound this round actually realized."""
+        with self._lock:
+            now = time.monotonic()
+            admitted = self._ingest_count
+            age = (now - self._ingest_log[0]) if self._ingest_log else 0.0
+            self._ingest_log.clear()
+            self._ingest_count = 0
+            return admitted, age
+
+    def pending_ingest(self) -> int:
+        """Arrivals since the last admission cut — read at round end,
+        these are the deltas that rolled to round N+1
+        (``admission_deferred``)."""
+        with self._lock:
+            return self._ingest_count
+
+    def take_ingest_hints(self) -> Tuple[Set[int], Set[str]]:
+        """Drain the accumulated dirty-hint sets (EC ids, machine
+        uuids) for the cost-plane cache's continuous-ingest seam."""
+        with self._lock:
+            rows, cols = self._ingest_ecs, self._ingest_machines
+            self._ingest_ecs, self._ingest_machines = set(), set()
+            return rows, cols
+
+
     # ------------------------------------------------------------------ tasks
 
     def task_submitted(self, task: TaskInfo) -> TaskReply:
@@ -307,6 +385,7 @@ class ClusterState:
                 task.scheduled_to = None
                 task.state = TaskState.RUNNABLE
             task.submit_round = self.round_index
+            self._ingest_hint(ec=task.ec_id, machine=task.scheduled_to)
             self.tasks[task.uid] = task
             self.jobs.setdefault(task.job_id, set()).add(task.uid)
             if task.pod_affinity or task.pod_anti_affinity:
@@ -330,6 +409,7 @@ class ClusterState:
         task = self.tasks.get(uid)
         if task is None:
             return None
+        self._ingest_hint(ec=task.ec_id, machine=task.scheduled_to)
         if self._residency.active and task.scheduled_to is not None:
             self._residency.remove(task.scheduled_to, task.labels)
         task.state = state
@@ -350,6 +430,7 @@ class ClusterState:
             task = self.tasks.get(uid)
             if task is None:
                 return TaskReply.NOT_FOUND
+            self._ingest_hint(ec=task.ec_id, machine=task.scheduled_to)
             # FAILED is terminal for this uid: the replacement pod arrives
             # as a *new* task (the reference's controller recreates the pod
             # and the watcher derives a fresh uid, podwatcher.go:310-318);
@@ -368,6 +449,7 @@ class ClusterState:
             task = self.tasks.pop(uid, None)
             if task is None:
                 return TaskReply.NOT_FOUND
+            self._ingest_hint(ec=task.ec_id, machine=task.scheduled_to)
             if task.scheduled_to is not None:
                 self.prior_machine.pop(uid, None)  # refresh FIFO position
                 self.prior_machine[uid] = task.scheduled_to
@@ -400,6 +482,8 @@ class ClusterState:
             existing = self.tasks.get(task.uid)
             if existing is None:
                 return TaskReply.NOT_FOUND
+            self._ingest_hint(ec=existing.ec_id,
+                              machine=existing.scheduled_to)
             # Update the mutable request/constraint attributes in place
             # (podwatcher.go:362-375 updates request + labels).
             existing.cpu_request = task.cpu_request
@@ -425,6 +509,7 @@ class ClusterState:
             existing.pod_anti_affinity = task.pod_anti_affinity
             existing.labels = task.labels
             existing.ec_id = existing.compute_ec_id()
+            self._ingest_hint(ec=existing.ec_id)
             has = bool(existing.pod_affinity or existing.pod_anti_affinity)
             self._pod_selector_tasks += int(has) - int(had)
             if (
@@ -458,6 +543,7 @@ class ClusterState:
                     machine.ram_capacity, machine.net_rx_capacity,
                     machine.task_slots,
                 )
+            self._ingest_hint(machine=machine.uuid)
             self._node_generation += 1
             self.generation += 1
             return NodeReply.ADDED_OK
@@ -491,6 +577,7 @@ class ClusterState:
             # Tasks on a failed node go back to runnable; the next round
             # re-places them (failure propagation, nodewatcher.go:151-165).
             self._evict_tasks_on(machine.uuid)
+            self._ingest_hint(machine=machine.uuid)
             self._node_generation += 1
             self.generation += 1
             return NodeReply.FAILED_OK
@@ -513,6 +600,7 @@ class ClusterState:
                 self._residency.machine_removed(machine.uuid)
             if self._native is not None:
                 self._native.machine_remove(self._nkey(machine.uuid))
+            self._ingest_hint(machine=machine.uuid)
             self._node_generation += 1
             self.generation += 1
             return NodeReply.REMOVED_OK
@@ -543,6 +631,7 @@ class ClusterState:
                     existing.ram_capacity, existing.net_rx_capacity,
                     existing.task_slots,
                 )
+            self._ingest_hint(machine=existing.uuid)
             self._node_generation += 1
             self.generation += 1
             return NodeReply.UPDATED_OK
@@ -588,6 +677,7 @@ class ClusterState:
                 machine.mem_util = (
                     alpha * float(mem_u) + (1 - alpha) * machine.mem_util
                 )
+            self._ingest_hint(machine=machine.uuid)
             self.generation += 1
             return NodeReply.ADDED_OK
 
@@ -668,7 +758,7 @@ class ClusterState:
                 # Direct bump: the round commit is the scheduler's own
                 # write-back, not watcher ingest — it must not count
                 # against the streaming admission window.
-                self.generation += 1
+                self._generation += 1
 
     def mirror_wait_rounds(self) -> None:
         """Copy the pending tasks' ``wait_rounds`` into the native core,

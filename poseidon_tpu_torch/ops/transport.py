@@ -888,13 +888,22 @@ def solve_route(impl: str, *args, **kw):
     return _solve_device(*args, **kw)
 
 
-def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """THE host-to-device boundary of a solve's operands: a copy of ``a``
+    on ``device`` (a copy on the CPU too, so no device tensor ever
+    aliases a host buffer the caller keeps mutating)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+
+
+def _solve_device_packed(big, vec: np.ndarray, *, max_iter: int,
                          scale: int, impl: str, device, telem_cap: int = 0):
     """Packed-I/O front of the three routes (``fused``, ``tiled``, plain
     ``lax``).  ``big`` is ``[3, E, M]`` int32 (costs, arc capacity, init
-    flows) and ``vec`` the 1-D int32 vector (supply | capacity | unsched
-    cost | prices | fallback | eps schedule | max_iter_total,
-    global_every, bf_max, adaptive_bf), both host arrays.  Returns the flow
+    flows), a host array or an operand already on ``device`` (the
+    resident cache's), and ``vec`` the 1-D int32 host vector (supply |
+    capacity | unsched cost | prices | fallback | eps schedule |
+    max_iter_total, global_every, bf_max, adaptive_bf).  No route writes
+    into ``big``'s planes.  Returns the flow
     matrix on the device and ONE host read of the small result vector
     (fallback | prices | iters, bf, clean, unchanged | per-phase
     iterations | the flattened telemetry ring, empty when ``telem_cap`` is
@@ -912,8 +921,8 @@ def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
     )
     eps_sched = [int(v) for v in vec[slice(*cuts["eps"])]]
     total = int(vec[slice(*cuts["supply"])].astype(np.int64).sum())
-    big_d = torch.from_numpy(big).to(device)
-    vec_d = torch.from_numpy(vec).to(device)
+    big_d = big if isinstance(big, torch.Tensor) else _upload(big, device)
+    vec_d = _upload(vec, device)
 
     def v(name):
         return vec_d[slice(*cuts[name])]
@@ -928,6 +937,93 @@ def _solve_device_packed(big: np.ndarray, vec: np.ndarray, *, max_iter: int,
     unchanged = (F == big_d[2]).all().to(I32).reshape(1)
     small = torch.cat([Ffb, prices, stats[:3], unchanged, stats[3:]])
     return F, _host_read(small)
+
+
+# ---------------------------------------------------------------- resident
+# Device-resident operand cache (the reference's B4): between churn
+# rounds only the columns whose machines gained or lost load change, yet
+# the [3, E, M] operand is the largest upload of every solve.  The cache
+# keeps the last uploaded operand per padded shape (a host copy and the
+# device tensor) and uploads only the changed columns, written in place
+# on the device; a solve's flow result is folded into the resident
+# plane 2 on the device, so a warm re-solve's init flows diff clean.
+_RESIDENT: dict = {}
+_RESIDENT_MAX_SHAPES = 4
+# When more than M_pad // DIVISOR columns changed, a wholesale upload is
+# cheaper than the scatter payload and its index bookkeeping.
+_RESIDENT_DIFF_DIVISOR = 4
+
+
+def _resident_scatter_cols(dev_big: torch.Tensor, idx: torch.Tensor,
+                           payload: torch.Tensor) -> torch.Tensor:
+    """Replace columns ``idx`` of the resident [3, E, M] operand with
+    ``payload`` [3, E, k], in place.  ``idx`` may repeat its last entry
+    (the bucketed padding); duplicates carry identical column data, so
+    the copy is deterministic."""
+    return dev_big.index_copy_(2, idx, payload)
+
+
+def _resident_set_flows(dev_big: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """Fold a solve's flow result into resident plane 2, on the device
+    (the next warm solve's init flows are already there)."""
+    dev_big[2].copy_(F)
+    return dev_big
+
+
+def _resident_swap(big: np.ndarray, device) -> torch.Tensor:
+    """The device operand for ``big``, uploading only what changed since
+    the last solve at this padded shape.  A full upload on first sight
+    of a shape (or of a shape last seen on another device) and on a
+    wholesale change."""
+    dev = torch.device(device)
+    key = big.shape[1:]
+    entry = _RESIDENT.pop(key, None)
+    # Keyed on the device as the caller names it ("cuda" is not equal to
+    # the "cuda:0" a tensor reports).
+    if entry is not None and entry["device"] != dev:
+        entry = None
+    if entry is None:
+        while len(_RESIDENT) >= _RESIDENT_MAX_SHAPES:
+            _RESIDENT.pop(next(iter(_RESIDENT)))  # LRU: oldest first
+        entry = {"host": big.copy(), "dev": _upload(big, dev), "device": dev}
+        _RESIDENT[key] = entry
+        return entry["dev"]
+    _RESIDENT[key] = entry  # re-insert: move-to-end keeps hot shapes
+    M_pad = key[1]
+    changed = np.nonzero((entry["host"] != big).any(axis=(0, 1)))[0]
+    k = len(changed)
+    if k == 0:
+        return entry["dev"]
+    if k > M_pad // _RESIDENT_DIFF_DIVISOR:
+        entry["host"] = big.copy()
+        entry["dev"] = _upload(big, dev)
+        return entry["dev"]
+    # The index width is bucketed as the reference buckets it for its
+    # compile keys (torch needs no bucketing; keeping it makes the
+    # uploaded bytes the reference's), padded by repeating the last
+    # changed column, which is idempotent under the copy.
+    k_pad = 1 << max(int(k - 1).bit_length(), 5)
+    k_pad = min(k_pad, M_pad)
+    idx = np.full(k_pad, changed[-1], dtype=np.int32)
+    idx[:k] = changed
+    payload = np.ascontiguousarray(big[:, :, idx])
+    entry["dev"] = _resident_scatter_cols(
+        entry["dev"], _upload(idx, dev).long(), _upload(payload, dev)
+    )
+    entry["host"][:, :, changed] = big[:, :, changed]
+    return entry["dev"]
+
+
+def _resident_fold_result(key, F_dev: torch.Tensor,
+                          F_full: np.ndarray) -> None:
+    """After a flow-changing solve, keep the resident operand's plane 2
+    in step with the result so the NEXT warm solve's init flows diff
+    clean."""
+    entry = _RESIDENT.get(key)
+    if entry is None:
+        return
+    entry["dev"] = _resident_set_flows(entry["dev"], F_dev)
+    entry["host"][2] = F_full
 
 
 # The epsilon ladder always has this many phases.  Ladder factor 4096:
@@ -2201,9 +2297,17 @@ def solve_transport(
     impl = route_for(E_pad, M_pad, dev)
     _Telemetry.routes[(impl, E_pad, M_pad)] += 1
     telem_cap = solve_telemetry_cap()
+    # Device-resident operand cache (CUDA default): upload only the
+    # columns that changed since the last solve at this padded shape.
+    use_resident = accel_policy("POSEIDON_RESIDENT", dev)
+    with _stage("solve.upload", dev):
+        if use_resident:
+            big_op = _resident_swap(big, dev)
+        else:
+            big_op = _upload(big, dev)
     with _stage("solve.device"), _stage(f"solve.device.{impl}", dev):
         F_dev, small = _solve_device_packed(
-            big, vec, max_iter=max_iter_per_phase, scale=int(scale),
+            big_op, vec, max_iter=max_iter_per_phase, scale=int(scale),
             impl=impl, device=dev, telem_cap=telem_cap,
         )
     o = E_pad
@@ -2227,8 +2331,14 @@ def solve_transport(
         # own their return value, while flows_p views the operand buffer.
         flows = flows_p[:E, :M].copy()
     else:
+        # The full padded matrix: the resident fold needs all of it.
         with _stage("solve.fetch_flows"):
-            flows = _host_read(F_dev)[:E, :M]
+            F_full = _host_read(F_dev)
+        flows = F_full[:E, :M]
+        if use_resident:
+            # Fold the result into resident plane 2 so the next warm
+            # solve's init flows diff clean (no re-upload).
+            _resident_fold_result((E_pad, M_pad), F_dev, F_full)
     prices_out = np.concatenate([
         prices_full[:E], prices_full[E_pad:E_pad + M],
         prices_full[E_pad + M_pad:],

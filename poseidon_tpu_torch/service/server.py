@@ -28,7 +28,9 @@ from poseidon_tpu_torch.protos.services import (
     generic_handler,
 )
 from poseidon_tpu_torch.service import converters
+from poseidon_tpu_torch.obs import metrics as obs_metrics
 from poseidon_tpu_torch.utils.config import FirmamentTPUConfig, load_config
+from poseidon_tpu_torch.utils.locks import TrackedLock
 
 log = logging.getLogger("poseidon_tpu_torch.server")
 
@@ -71,8 +73,15 @@ class FirmamentServicer:
         )
         # Schedule() rounds are serialized: the planner's warm-start state
         # is single-writer.
-        self._schedule_lock = threading.Lock()
-        self._ckpt_write_lock = threading.Lock()
+        self._schedule_lock = TrackedLock(
+            "service.FirmamentServicer._schedule_lock"
+        )
+        # Checkpoint writes happen OUTSIDE the schedule lock (fsync
+        # latency must not stall rounds) but must still not interleave
+        # with each other (periodic vs shutdown save share a tmp path).
+        self._ckpt_write_lock = TrackedLock(
+            "service.FirmamentServicer._ckpt_write_lock"
+        )
         self._warmed = False
 
     # ------------------------------------------------------------- scheduling
@@ -105,6 +114,10 @@ class FirmamentServicer:
             metrics.iterations, metrics.bf_sweeps, metrics.solve_tier,
             metrics.pruned_bands, metrics.cost_delta_hits,
         )
+        # Prometheus feed: every RoundMetrics field (schema-driven via
+        # to_dict) plus the process-wide lock-ledger counters.
+        obs_metrics.observe_round(metrics)
+        obs_metrics.observe_ledger()
         every = self.config.checkpoint_every_rounds
         if (
             self.config.checkpoint_path and every > 0
@@ -223,6 +236,14 @@ class FirmamentTPUServer:
         self.port = self._server.add_insecure_port(self.config.listen_address)
         if self.port == 0:
             raise RuntimeError(f"could not bind {self.config.listen_address}")
+        # Service-side Prometheus exporter: the round metrics live in THIS
+        # process (Schedule() runs here), so the two-process deployment
+        # needs an endpoint on both sides.
+        self.metrics_server: Optional[obs_metrics.MetricsServer] = None
+        if self.config.metrics_address:
+            self.metrics_server = obs_metrics.MetricsServer(
+                self.config.metrics_address
+            )
 
     @property
     def address(self) -> str:
@@ -233,10 +254,16 @@ class FirmamentTPUServer:
 
     def start(self) -> "FirmamentTPUServer":
         self._server.start()
+        if self.metrics_server is not None:
+            self.metrics_server.start()
+            log.info("metrics on http://%s/metrics",
+                     self.metrics_server.address)
         log.info("firmament (torch port) serving on %s", self.address)
         return self
 
     def stop(self, grace: Optional[float] = None) -> None:
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
         self._server.stop(grace).wait()
 
     def wait(self) -> None:

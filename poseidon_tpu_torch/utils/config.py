@@ -20,13 +20,53 @@ import yaml
 
 
 @dataclass
+class PoseidonConfig:
+    """Client-side (glue) configuration — config.go:31-40."""
+
+    scheduler_name: str = "poseidon"
+    firmament_address: str = "firmament-service.kube-system:9090"
+    kube_config: str = ""
+    kube_version: str = "1.6"
+    stats_server_address: str = "0.0.0.0:9091"
+    # Prometheus exposition endpoint (obs/metrics.MetricsServer).  Empty
+    # disables the exporter (the test-harness default).
+    metrics_address: str = ""
+    scheduling_interval: float = 10.0  # seconds; config.go:120
+    # RPC hardening (the reference has none of these: its client blocks
+    # forever on a wedged Firmament): per-RPC deadline, bounded retry
+    # with exponential backoff + jitter (service/client.py).
+    rpc_timeout_s: float = 30.0
+    rpc_retries: int = 3
+    rpc_backoff_s: float = 0.05
+    # Crash-loop budget for the schedule loop (glue/poseidon.py): after
+    # this many CONSECUTIVE failed rounds the loop stops fatally instead
+    # of log-and-spin; failed rounds back off exponentially from
+    # crash_backoff_s up to crash_backoff_max_s between retries.
+    crash_loop_budget: int = 8
+    crash_backoff_s: float = 0.5
+    crash_backoff_max_s: float = 30.0
+    config_file: str = ""
+
+    def kube_version_tuple(self) -> tuple:
+        """(major, minor) — the reference fatals on malformed versions
+        (GetKubeVersion, config.go:61-72); here that is a ValueError."""
+        parts = self.kube_version.split(".")
+        try:
+            return int(parts[0]), int(parts[1])
+        except (IndexError, ValueError):
+            raise ValueError(
+                f"incorrect content in --kube-version {self.kube_version!r}"
+            ) from None
+
+
+@dataclass
 class FirmamentTPUConfig:
     """Service-side configuration (the analog of Firmament's gflags flagfile,
     deploy/firmament-deployment.yaml:29)."""
 
     listen_address: str = "0.0.0.0:9090"
-    # Prometheus exposition endpoint; the port has no exporter yet, so it
-    # must stay empty.
+    # Prometheus exposition endpoint (obs/metrics.MetricsServer) for the
+    # service process, where the rounds run.  Empty disables it.
     metrics_address: str = ""
     # Cost model selection: "cpu_mem" (the reference's active model) or
     # "trivial".
@@ -73,11 +113,10 @@ class FirmamentTPUConfig:
             raise ValueError(
                 f"solver_devices {self.solver_devices}: the port solves on "
                 "one device")
-        for key in ("profile_dir", "metrics_address"):
-            if getattr(self, key):
-                raise ValueError(
-                    f"{key} {getattr(self, key)!r}: the port has no "
-                    f"{key.split('_')[0]} support yet; leave it empty")
+        if self.profile_dir:
+            raise ValueError(
+                f"profile_dir {self.profile_dir!r}: the port has no "
+                "profile support yet; leave it empty")
 
 
 def _str2bool(s: str) -> bool:
@@ -106,7 +145,7 @@ def _apply_file(cfg: Any, path: str) -> None:
 
 
 def load_config(
-    cls=FirmamentTPUConfig,
+    cls=PoseidonConfig,
     argv: Optional[Sequence[str]] = None,
     overrides: Optional[Dict[str, Any]] = None,
 ) -> Any:
@@ -141,5 +180,6 @@ def load_config(
             setattr(cfg, f.name, val)
     for key, value in (overrides or {}).items():
         setattr(cfg, key, value)
-    cfg.validate()
+    if hasattr(cfg, "validate"):
+        cfg.validate()
     return cfg

@@ -8,10 +8,11 @@ environment at call time, never at import time.
 
 Kinds:
   bool_on   default ON:  any value other than "0" enables
+  bool_off  default OFF: only exactly "1" enables
   tristate  "1" forces on, "0" forces off, unset defers to the device
             policy (transport.accel_policy: on when the solve's device is
             CUDA)
-  int       numeric knob; unparseable values fall back to the default
+  int/float numeric knob; unparseable values fall back to the default
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-_KINDS = ("bool_on", "tristate", "int")
+_KINDS = ("bool_on", "bool_off", "tristate", "int", "float")
 
 
 @dataclass(frozen=True)
@@ -51,6 +52,10 @@ HATCHES: Tuple[Hatch, ...] = (
 
     Hatch("POSEIDON_ADAPTIVE_BF", "tristate", "",
           "Excess-decay-adaptive global-update cadence (CUDA default on)"),
+    Hatch("POSEIDON_RESIDENT", "tristate", "",
+          "Device-resident operand cache: upload only the changed columns "
+          "of the [3, E, M] operand between solves at one padded shape "
+          "(CUDA default on)"),
     Hatch("POSEIDON_FUSED", "tristate", "",
           "Fused ladder kernel for shapes inside the fused gate (CUDA "
           "default on; 0 runs the plain torch ladder)"),
@@ -110,6 +115,28 @@ HATCHES: Tuple[Hatch, ...] = (
     Hatch("POSEIDON_OVERLAP_ASSIGN", "bool_on", "1",
           "Overlap finished bands' EC->task assignment with the next "
           "band's solve (host numpy on a worker thread)"),
+
+    Hatch("POSEIDON_STREAMING", "bool_off", "0",
+          "Streaming round engine (glue/poseidon.py): overlap round N's "
+          "enactment with round N+1's schedule RPC and speculate the next "
+          "round's cost build across rounds; 0 runs the synchronous loop"),
+    Hatch("POSEIDON_ADMISSION_STALENESS_S", "float", "0.25",
+          "Streaming admission batcher: bounded-staleness deadline in "
+          "seconds (the streaming loop's round cadence)"),
+    Hatch("POSEIDON_INGEST_STALL_S", "float", "60",
+          "Seconds without a watcher event before /healthz reports a "
+          "wedged ingest path (503) under streaming; 0 disables"),
+
+    Hatch("POSEIDON_TRACE", "bool_off", "0",
+          "Record hierarchical spans (Perfetto-exportable; obs/trace.py)"),
+    Hatch("POSEIDON_STAGE_TIMERS", "bool_off", "0",
+          "Aggregate per-span wall timings without recording spans"),
+    Hatch("POSEIDON_ROUND_HISTORY", "int", "128",
+          "Round-history ring capacity behind /debug/rounds "
+          "(obs/history.py); 0 disables recording"),
+    Hatch("POSEIDON_LOCK_LEDGER", "bool_on", "1",
+          "TrackedLock order/contention/hold accounting (utils/locks.py); "
+          "0 degrades every tracked lock to a bare delegate"),
 )
 
 _BY_NAME = {h.name: h for h in HATCHES}
@@ -132,11 +159,23 @@ def hatch_raw(name: str) -> Optional[str]:
     return os.environ.get(name)
 
 
+def hatch_set(name: str) -> bool:
+    """True iff the hatch is present in the environment at all (the
+    tracer's fully-disabled fast path needs exactly this)."""
+    hatch(name)
+    return name in os.environ
+
+
 def hatch_bool(name: str) -> bool:
+    """``bool_on`` hatches disable only on exactly "0"; ``bool_off``
+    hatches enable only on exactly "1"."""
     h = hatch(name)
-    if h.kind != "bool_on":
-        raise TypeError(f"hatch {name} is {h.kind}, not a bool gate")
-    return os.environ.get(name, h.default) != "0"
+    raw = os.environ.get(name, h.default)
+    if h.kind == "bool_on":
+        return raw != "0"
+    if h.kind == "bool_off":
+        return raw == "1"
+    raise TypeError(f"hatch {name} is {h.kind}, not a bool gate")
 
 
 def hatch_int(name: str, default: Optional[int] = None) -> int:
@@ -149,8 +188,25 @@ def hatch_int(name: str, default: Optional[int] = None) -> int:
             return int(raw)
         except ValueError:
             pass
+    return _numeric_fallback(h, default, int)
+
+
+def hatch_float(name: str, default: Optional[float] = None) -> float:
+    h = hatch(name)
+    if h.kind != "float":
+        raise TypeError(f"hatch {name} is {h.kind}, not a float knob")
+    raw = os.environ.get(name)
+    if raw is not None:
+        try:
+            return float(raw)
+        except ValueError:
+            pass
+    return _numeric_fallback(h, default, float)
+
+
+def _numeric_fallback(h: Hatch, default, conv):
     if default is not None:
         return default
     if h.default == "":
-        raise TypeError(f"hatch {name} declares no default; pass default=")
-    return int(h.default)
+        raise TypeError(f"hatch {h.name} declares no default; pass default=")
+    return conv(h.default)

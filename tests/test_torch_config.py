@@ -2,7 +2,7 @@
 
 The deploy profile loads to the same values in both packages, and a value
 the port cannot honour yet (another solver, more than one device, a
-profiler or metrics endpoint) raises instead of being dropped.
+profiler) raises instead of being dropped; a metrics endpoint is honoured.
 """
 
 from pathlib import Path
@@ -41,13 +41,35 @@ def test_deploy_profile_loads_like_reference():
     ("flow_solver: ssp", "flow_solver"),
     ("solver_devices: 8", "solver_devices"),
     ("profile_dir: /tmp/prof", "profile_dir"),
-    ("metrics_address: 0.0.0.0:9100", "metrics_address"),
 ])
 def test_unsupported_values_raise(tmp_path, line, key):
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(PROFILE.read_text() + line + "\n")
     with pytest.raises(ValueError, match=key):
         load_config(FirmamentTPUConfig, argv=["--config-file", str(cfg)])
+
+
+def test_metrics_address_is_honoured(tmp_path):
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(PROFILE.read_text() + "metrics_address: 0.0.0.0:9100\n")
+    t = load_config(FirmamentTPUConfig, argv=["--config-file", str(cfg)])
+    assert t.metrics_address == "0.0.0.0:9100"
+
+
+def test_glue_config_loads_like_reference(tmp_path):
+    from poseidon_tpu.utils.config import PoseidonConfig as JPoseidonConfig
+    from poseidon_tpu_torch.utils.config import PoseidonConfig
+
+    cfg = tmp_path / "glue.yaml"
+    cfg.write_text("firmamentAddress: 10.0.0.1:9090\nschedulingInterval: 2.5\n"
+                   "rpc_retries: 5\n")
+    argv = ["--config-file", str(cfg), "--metrics-address=127.0.0.1:0",
+            "--kube-version=1.9"]
+    j = j_load_config(JPoseidonConfig, argv=argv)
+    t = load_config(PoseidonConfig, argv=argv)
+    assert j.__dict__ == t.__dict__
+    assert load_config(argv=[]).__dict__ == JPoseidonConfig().__dict__
+    assert t.kube_version_tuple() == (1, 9)
 
 
 @pytest.mark.parametrize("flag", ["--flow-solver=ssp", "--solver-devices=2"])

@@ -31,6 +31,18 @@ for name in names:
     importlib.import_module(name)
 assert {"poseidon_tpu_torch.ops.transport_coarse",
         "poseidon_tpu_torch.native", "poseidon_tpu_torch.native.bindings",
+        "poseidon_tpu_torch.utils.locks", "poseidon_tpu_torch.obs.trace",
+        "poseidon_tpu_torch.obs.history", "poseidon_tpu_torch.obs.metrics",
+        "poseidon_tpu_torch.service.client",
+        "poseidon_tpu_torch.glue.fake_kube",
+        "poseidon_tpu_torch.glue.keyed_queue", "poseidon_tpu_torch.glue.types",
+        "poseidon_tpu_torch.glue.kube_convert",
+        "poseidon_tpu_torch.glue.podwatcher",
+        "poseidon_tpu_torch.glue.nodewatcher",
+        "poseidon_tpu_torch.glue.stats_server",
+        "poseidon_tpu_torch.glue.metrics_agent",
+        "poseidon_tpu_torch.glue.poseidon", "poseidon_tpu_torch.glue.main",
+        "poseidon_tpu_torch.glue.kube_client",
         } <= set(names), names
 import chip_smoke
 bad = [m for m in sys.modules
@@ -47,6 +59,37 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+GLUE_PROBE = r"""
+import sys
+import poseidon_tpu_torch.glue
+import poseidon_tpu_torch.glue.main
+import poseidon_tpu_torch.glue.metrics_agent
+import poseidon_tpu_torch.glue.kube_client
+from poseidon_tpu_torch.utils.config import PoseidonConfig, load_config
+
+cfg = load_config(PoseidonConfig, argv=[
+    "--firmament-address=127.0.0.1:19090", "--metrics-address=127.0.0.1:0",
+    "--scheduling-interval=2.5"])
+assert cfg.firmament_address == "127.0.0.1:19090", cfg
+assert cfg.scheduling_interval == 2.5, cfg
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("torch", "jax", "jaxlib", "poseidon_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_glue_process_imports_no_torch():
+    """The glue process (the port's counterpart of the reference keeping
+    jax out of its glue) never loads torch."""
+    out = subprocess.run(
+        [sys.executable, "-c", GLUE_PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_no_module_names_the_jax_package_in_an_import():
