@@ -40,7 +40,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    rounds) with the planner tiers, the convergence telemetry, the fused
    coarse program and the native graph core at their defaults (pruned
    planes with the certificate cache, delta-maintained cost planes,
-   cross-band pipelining, overlapped assignment; the ring on); every
+   cross-band pipelining, overlapped assignment; the ring on), each
+   drive's server running its precompile at the live cluster's machine
+   bucket before the first round (the plain-forced drive none); every
    round must certify and logs its tier and telemetry counts, each
    device solve's route and padded shape, what the coarse start did per
    band, its seam and host reads, and its stage split; the wave's band 1
@@ -82,7 +84,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    FakeKube's bindings equal the scheduler's view; the glue's and the
    server's ``/metrics`` carry the loop and round series; a
    ``MetricsAgent`` push lands; then a server restored from the glue's
-   checkpoint drives the wave directly with byte-identical deltas.
+   checkpoint drives the wave directly with byte-identical deltas;
+8. the harness phases: ``replay`` (BASELINE config 5, the reference's
+   trace replay at 10,000 machines, 12,500 jobs and 5 rounds, with the
+   kernels and with the plain versions forced: every round certified,
+   each round's deltas byte-identical, ``summary()`` equal but for its
+   time fields), ``pressure`` (the reference's pressure replay, 2,500
+   machines with 10% removed mid-trace and the whole workload
+   re-entering every round, 20 rounds, the first 8 against a
+   plain-forced run; then the same trace with twice the jobs, which must
+   preempt and migrate), ``soak`` (the chaos soak's smoke plan at 200
+   machines through the full stack on the card, every gate passed with
+   the ledger quartet at 0 in warm rounds, then rerun to the same
+   digests, then run with the host certificate off, which answers its
+   solves at this size, so that they run on the card: same gates, same
+   digests; before it one CUDA ``.item()`` must count one implicit
+   transfer) and ``scenario`` (the five named scenarios at 200 machines,
+   synchronous, streaming and with the host certificate off, all with
+   equal digests, each scored above 0); each checks its server's
+   device, and counts each round's kernel launches apart from its
+   servers' precompile (the drives with the certificate off must solve
+   on the card and launch every kernel of the routes they took).
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--compare N`` prints,
@@ -96,6 +118,8 @@ off, on, ...).  ``--compare N disagg [SEAM]`` times the disaggregation
 kernel alone: its first launch in the process, then its cases (and the
 wave seam a full run saves under ``build/chip_smoke/``) N times; a copy
 of this script in an earlier tree's root times that tree's kernel.
+``--phases replay,pressure,soak,scenario`` (any subset) runs those
+phases alone, with no kernel comparison and no result line.
 """
 
 from __future__ import annotations
@@ -1355,7 +1379,8 @@ class _GcClock:
         return out
 
 
-def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True):
+def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True,
+          precompile=True):
     """Start the port's server from the cluster checkpoint ``ckpt``
     (``load_cluster``), run a fresh wave and ``churn_rounds`` churn
     rounds over gRPC (each removing and resubmitting 1% of ``tasks``).
@@ -1368,7 +1393,9 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True):
     says.  ``capture``, a dict, receives the wave's ladder operands
     (``"solves"``: packed ``(big, vec, scale)``) and the inputs of its
     first disaggregation (``"seam"``), for the kernels to be held against
-    their plain versions there afterwards."""
+    their plain versions there afterwards.  The server runs its
+    precompile (every solve key of the live cluster's machine bucket)
+    before the first round, unless ``precompile`` is False."""
     from poseidon_tpu_torch.ops import _kernels
     from poseidon_tpu_torch.ops import transport as T
     from poseidon_tpu_torch.protos import firmament_pb2 as fpb
@@ -1383,18 +1410,21 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True):
 
     rounds = []
     rng = np.random.default_rng(SEED + 1)
-    cfg = FirmamentTPUConfig(precompile=True, device=DEVICE.type,
-                             checkpoint_path=str(ckpt))
+    cfg = FirmamentTPUConfig(precompile=precompile, device=DEVICE.type,
+                             checkpoint_path=str(ckpt), max_machines=0)
     t0 = time.perf_counter()
     with FirmamentTPUServer(cfg, address="127.0.0.1:0") as srv, \
             _channel(srv) as ch, _CoarseWatch() as watch, \
             _GcClock() as gcc:
         stubs = make_stubs(ch, FIRMAMENT_SERVICE, FIRMAMENT_METHODS)
-        srv.servicer.ensure_precompiled()
+        t1 = time.perf_counter()
+        keys = srv.servicer.ensure_precompiled()
+        t2 = time.perf_counter()
         st = srv.servicer.state
         log(f"  [{label}] server restored {len(st.machines)} machines, "
             f"{len(st.tasks)} pods from the checkpoint in "
-            f"{time.perf_counter() - t0:.1f} s; native graph core "
+            f"{t1 - t0:.1f} s; precompile {keys} solve keys in "
+            f"{t2 - t1:.1f} s; native graph core "
             f"{'loaded' if st.native_loaded else 'not loaded'}")
         if st.native_loaded != native:
             fail(f"[{label}] the native graph core is "
@@ -1587,7 +1617,10 @@ def main_path(capture):
     _check_path("main", kern)
     _set_plain_pipeline(True)
     log("main path (defaults): wave, plain versions forced")
-    plain = drive("main-plain", ckpt, tasks, CHURN_ROUNDS, capture=capture)
+    # No precompile here: its probes on the plain ladders cost minutes at
+    # this width and change no delta.
+    plain = drive("main-plain", ckpt, tasks, CHURN_ROUNDS, capture=capture,
+                  precompile=False)
     _set_plain_pipeline(False)
     _same_rounds("main", kern, plain)
     if any(any(r["launches"].values()) for r in plain):
@@ -1977,12 +2010,11 @@ def glue_drive():
         f"{len(kube.pods)} pods in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED + 2)
     cfg = FirmamentTPUConfig(precompile=True, device=DEVICE.type,
-                             checkpoint_path=str(ckpt),
+                             checkpoint_path=str(ckpt), max_machines=0,
                              metrics_address="127.0.0.1:0")
     rounds = []
     with FirmamentTPUServer(cfg, address="127.0.0.1:0") as srv, \
             _CoarseWatch() as watch, _GcClock() as gcc:
-        srv.servicer.ensure_precompiled()
         st = srv.servicer.state
         if not st.native_loaded:
             fail("[glue] the server's native graph core is not loaded")
@@ -1992,6 +2024,8 @@ def glue_drive():
         glue = Poseidon(kube, config=gcfg, stats_address="127.0.0.1:0",
                         run_loop=False)
         t0 = time.perf_counter()
+        # The stage timers off for the load, which they would slow.
+        _timers(False)
         glue.start(health_timeout=60)
         try:
             if not glue.drain_watchers(timeout=GLUE_LOAD_TIMEOUT_S):
@@ -2003,12 +2037,17 @@ def glue_drive():
                      f" {len(st.tasks)} pods after the load")
             t1 = time.perf_counter()
             srv.servicer.save_checkpoint()
+            t2 = time.perf_counter()
+            # The precompile at the loaded cluster's machine bucket, as
+            # the drive harness runs it once the fleet registered.
+            keys = srv.servicer.ensure_precompiled()
             log(f"  [glue] watchers brought {MACHINES} nodes, {TASKS} pods "
                 f"in over gRPC in {load_s:.1f} s; checkpoint saved in "
-                f"{time.perf_counter() - t1:.1f} s")
-            # The tracer in timing mode for the rounds (not the load, which
-            # it would slow): the glue's span totals per round.
-            _set_env("POSEIDON_STAGE_TIMERS", "1")
+                f"{t2 - t1:.1f} s; precompile {keys} solve keys in "
+                f"{time.perf_counter() - t2:.1f} s")
+            # The tracer in timing mode for the rounds: the glue's span
+            # totals per round.
+            _timers(True)
             for r in range(GLUE_CHURN_ROUNDS + 1):
                 kind = "wave" if r == 0 else f"churn{r}"
                 churn_s = 0.0
@@ -2110,7 +2149,7 @@ def glue_drive():
                 f"series; one MetricsAgent push landed in the knowledge base")
         finally:
             glue.stop()
-            _set_env("POSEIDON_STAGE_TIMERS", None)
+            _timers(True)
     del kube
     _check_path("glue", rounds)
     direct = drive("glue-restored", ckpt, [], 0)
@@ -2122,6 +2161,503 @@ def glue_drive():
         f"({len(rounds[0]['deltas'])} bytes); wall {direct[0]['wall_s']:.3f}"
         f" s against the glue's {rounds[0]['wall_s']:.3f} s")
     return {"load_s": load_s, "rounds": rounds, "restored": direct}
+
+
+# ------------------------------------- replay, soak and scenario phases
+
+# BASELINE config 5, the reference's trace replay (bench.py:586-592 with
+# its defaults): 10,000 machines, 12,500 jobs (~100,000 tasks) over a
+# 50 s horizon, 5 rounds of 10 s.
+REPLAY = dict(machines=10_000, jobs=12_500, horizon_s=50.0, seed=3,
+              rounds=5)
+# The reference's pressure replay at the config-5 recipe's machine count
+# (bench.py:601-610): min(max(M // 4, 200), 2500) machines, 10% of them
+# removed mid-trace, the whole workload re-entering every round.  Its
+# demand stays below the shrunken fleet, so it migrates but never
+# preempts (in both packages); the same trace with twice the jobs
+# outgrows the fleet and forces PREEMPT too.
+PRESSURE = dict(machines=2500, jobs=3125, horizon_s=200.0, seed=4,
+                remove_frac=0.10, rounds=20, parity_rounds=8)
+PRESSURE_CAPACITY_JOBS = 2 * PRESSURE["jobs"]
+# The smoke soak at the reference's own soak scale (bench.py:1801).
+SOAK = dict(machines=200, rounds=8, plan="smoke", seed=0)
+# The five named scenarios at the soak's scale.
+SCENARIO = dict(machines=200, rounds=6, seed=0)
+HARNESS_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def _summary_sans_time(summary: dict) -> dict:
+    """``summary()`` without its time fields and the precompile's key
+    count (a plain-forced run skips the precompile)."""
+    return {k: v for k, v in summary.items()
+            if not k.endswith("_s") and k != "precompile_shapes"}
+
+
+def _replay(label, events, rounds, *, reschedule=False, precompile=True):
+    """One ``ReplayDriver`` run of ``events`` on the card for ``rounds``
+    rounds (its precompile first, unless ``precompile`` is False).
+    Returns the report, per-round records (the deltas as serialized
+    ``SchedulingDeltas``, the round's metrics, its kernel launches, its
+    solves by route and the solve keys it saw first), the rounds'
+    launches and the precompile's.  Every round must certify."""
+    from poseidon_tpu_torch.check.ledger import CompileLedger
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.replay import ReplayDriver
+    from poseidon_tpu_torch.service.converters import deltas_to_proto
+
+    driver = ReplayDriver(events, round_interval_s=10.0,
+                          reschedule_running=reschedule, device=DEVICE.type,
+                          precompile=precompile)
+    if driver.planner.device.type != DEVICE.type:
+        fail(f"[{label}] the replay's planner is on {driver.planner.device}")
+    recs = []
+    schedule_round = driver.planner.schedule_round
+    marks = {}
+
+    def counted_round():
+        marks["launches"] = dict(_kernels.LAUNCHES)
+        marks["routes"] = dict(T._Telemetry.routes)
+        with CompileLedger(budget=None) as led:
+            deltas, m = schedule_round()
+        recs.append(dict(
+            first_sights=list(led.compiled_names),
+            deltas=deltas_to_proto(deltas).SerializeToString(),
+            metrics=m.to_dict(),
+            launches={k: v - marks["launches"][k]
+                      for k, v in _kernels.LAUNCHES.items()},
+            routes={f"{k[0]}[{k[1]}, {k[2]}]": n - marks["routes"].get(k, 0)
+                    for k, n in sorted(T._Telemetry.routes.items())
+                    if n > marks["routes"].get(k, 0)},
+        ))
+        if m.gap_bound != 0.0 or not m.converged:
+            fail(f"[{label}] round {len(recs) - 1} did not certify "
+                 f"(gap_bound {m.gap_bound})")
+        return deltas, m
+
+    driver.planner.schedule_round = counted_round
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = driver.run(max_rounds=rounds)
+    wall = time.perf_counter() - t0
+    launches = _path_launches(recs)
+    pre = {k: n - launches[k] for k, n in _kernels.LAUNCHES.items()}
+    summary = report.summary()
+    log(f"  [{label}] {report.rounds} rounds in {wall:.1f} s (precompile "
+        f"{summary['precompile_s']} s, {summary['precompile_shapes']} solve "
+        f"keys, launches {pre}); the rounds' launches {launches}")
+    for r, rec in enumerate(recs):
+        m = rec["metrics"]
+        log(f"    round {r}: {m['total_seconds']:.3f} s, solve "
+            f"{m['solve_seconds']:.3f} s, tasks {m['num_tasks']}, ECs "
+            f"{m['num_ecs']}, machines {m['num_machines']}, placed "
+            f"{m['placed']}, preempted {m['preempted']}, migrated "
+            f"{m['migrated']}, tier {m['solve_tier']}, fresh compiles "
+            f"{m['fresh_compiles']}, implicit transfers "
+            f"{m['implicit_transfers']}, launches {rec['launches']}, solves "
+            f"by route {rec['routes']}"
+            + (f", first sights {rec['first_sights']}"
+               if rec["first_sights"] else ""))
+    return report, recs, launches, pre
+
+
+def _check_routes(label, recs, launches) -> None:
+    """Every kernel of a route the run's solves took was launched in it."""
+    for r, rec in enumerate(recs):
+        for route in rec["routes"]:
+            for k in ROUTE_KERNELS.get(route.split("[")[0], ()):
+                if launches[k] == 0:
+                    fail(f"[{label}] round {r} solved on {route} but {k} "
+                         "was never launched")
+
+
+def _same_replay(label, a_recs, b_recs) -> None:
+    for r, (a, b) in enumerate(zip(a_recs, b_recs)):
+        if a["deltas"] != b["deltas"]:
+            fail(f"[{label}] round {r}: deltas differ from the plain run")
+
+
+def replay_phase() -> dict:
+    """BASELINE config 5's replay on the card with the kernels, then with
+    the plain versions forced: every round certified, each round's deltas
+    byte-identical, ``summary()`` equal but for its time fields, and the
+    kernels launched on their run."""
+    from poseidon_tpu_torch.replay import synthesize_trace
+
+    c = REPLAY
+    events = synthesize_trace(c["machines"], c["jobs"],
+                              horizon_s=c["horizon_s"], seed=c["seed"])
+    jobs = sum(1 for e in events if e.kind == "job_submit")
+    tasks = sum(e.payload[1] for e in events if e.kind == "job_submit")
+    log(f"  trace: {c['machines']} machines, {jobs} jobs, {tasks} tasks "
+        f"over {c['horizon_s']} s")
+    _set_plain_pipeline(False)
+    report, recs, launches, pre = _replay("replay", events, c["rounds"])
+    # The plain-forced run skips the precompile, as every plain run here
+    # does: its probes on the plain ladders cost minutes and change no
+    # delta.
+    _set_plain_pipeline(True)
+    p_report, p_recs, p_launches, _ = _replay("replay-plain", events,
+                                              c["rounds"], precompile=False)
+    _set_plain_pipeline(False)
+    if any(p_launches.values()):
+        fail(f"[replay] the plain run launched a kernel: {p_launches}")
+    if not any(launches.values()):
+        fail("[replay] the kernels' rounds launched no kernel")
+    _check_routes("replay", recs, launches)
+    if len(recs) != c["rounds"] or len(p_recs) != c["rounds"]:
+        fail(f"[replay] ran {len(recs)} / {len(p_recs)} rounds")
+    _same_replay("replay", recs, p_recs)
+    s, ps = report.summary(), p_report.summary()
+    if _summary_sans_time(s) != _summary_sans_time(ps):
+        fail(f"[replay] summaries differ: {s} / {ps}")
+    if s["placed"] <= 0:
+        fail("[replay] placed nothing")
+    log(f"  [replay] deltas byte-identical to the plain run over "
+        f"{len(recs)} rounds; summary equal but for its time fields and "
+        "the precompile's key count")
+    log("  [replay] summary: " + json.dumps(
+        {k: s[k] for k in ("round_p50_s", "round_p99_s", "solve_p50_s",
+                           "precompile_s", "precompile_shapes", "placed",
+                           "final_unscheduled")}))
+    return {"summary": s, "plain_summary": ps, "rounds": recs,
+            "launches": launches, "precompile_launches": pre,
+            "tasks": tasks}
+
+
+def _pressure(label, jobs) -> dict:
+    """One pressure replay with the kernels, then its first rounds again
+    with the plain versions forced (no precompile: the comparison is the
+    deltas): every round certified, those rounds' deltas byte-identical,
+    and some of the fleet's tasks MIGRATEd."""
+    from poseidon_tpu_torch.replay import synthesize_trace
+
+    c = PRESSURE
+    events = synthesize_trace(c["machines"], jobs,
+                              horizon_s=c["horizon_s"], seed=c["seed"],
+                              remove_frac=c["remove_frac"])
+    _set_plain_pipeline(False)
+    report, recs, launches, pre = _replay(label, events, c["rounds"],
+                                          reschedule=True)
+    _set_plain_pipeline(True)
+    _, p_recs, p_launches, _ = _replay(f"{label}-plain", events,
+                                       c["parity_rounds"], reschedule=True,
+                                       precompile=False)
+    _set_plain_pipeline(False)
+    if any(p_launches.values()):
+        fail(f"[{label}] the plain run launched a kernel: {p_launches}")
+    if not any(launches.values()):
+        fail(f"[{label}] the kernels' rounds launched no kernel")
+    _check_routes(label, recs, launches)
+    if len(p_recs) != c["parity_rounds"]:
+        fail(f"[{label}] the plain run ran {len(p_recs)} rounds")
+    _same_replay(label, recs[:c["parity_rounds"]], p_recs)
+    if report.migrated <= 0:
+        fail(f"[{label}] migrated nothing")
+    s = report.summary()
+    log(f"  [{label}] {jobs} jobs: preempted {report.preempted}, migrated "
+        f"{report.migrated}; the first {c['parity_rounds']} rounds' deltas "
+        f"byte-identical to the plain run's; summary: {json.dumps(s)}")
+    return {"summary": s, "rounds": recs, "launches": launches,
+            "precompile_launches": pre}
+
+
+def pressure_phase() -> dict:
+    """The reference's pressure replay (10% of 2,500 machines removed
+    mid-trace, the whole workload re-entering every round) on the card,
+    then the same trace with twice the jobs: every round certified, the
+    first rounds' deltas byte-identical to a plain-forced run of them,
+    MIGRATE in both and PREEMPT where the demand outgrows the fleet."""
+    ref = _pressure("pressure", PRESSURE["jobs"])
+    cap = _pressure("pressure-capacity", PRESSURE_CAPACITY_JOBS)
+    s = cap["summary"]
+    if s["preempted"] <= 0 or s["migrated"] <= 0:
+        fail(f"[pressure-capacity] preempted {s['preempted']}, migrated "
+             f"{s['migrated']}: both must be positive")
+    return {"summary": ref["summary"], "rounds": ref["rounds"],
+            "capacity": {"summary": s, "rounds": cap["rounds"]},
+            "launches": _add(ref["launches"], cap["launches"]),
+            "precompile_launches": _add(ref["precompile_launches"],
+                                        cap["precompile_launches"])}
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+class _RoundCounts:
+    """Each planner round's kernel launches, device solves, host
+    certificates and solves by route, for every round run inside it: a
+    wrap of ``RoundPlanner.schedule_round`` on the class, so the rounds of
+    the servers a harness builds for itself are counted and their
+    precompile, which runs no round, is not."""
+
+    def __enter__(self):
+        from poseidon_tpu_torch.graph.instance import RoundPlanner
+        from poseidon_tpu_torch.ops import _kernels
+        from poseidon_tpu_torch.ops import transport as T
+
+        self._orig = orig = RoundPlanner.schedule_round
+        self.rounds = rounds = []
+
+        def counted(planner):
+            l0 = dict(_kernels.LAUNCHES)
+            r0 = dict(T._Telemetry.routes)
+            d0 = T._Telemetry.device_calls
+            h0 = T._Telemetry.host_cert_returns
+            out = orig(planner)
+            rounds.append(dict(
+                launches={k: _kernels.LAUNCHES[k] - l0[k]
+                          for k in KERNEL_NAMES},
+                device_solves=T._Telemetry.device_calls - d0,
+                host_certs=T._Telemetry.host_cert_returns - h0,
+                routes={f"{k[0]}[{k[1]}, {k[2]}]": n - r0.get(k, 0)
+                        for k, n in sorted(T._Telemetry.routes.items())
+                        if n > r0.get(k, 0)},
+            ))
+            return out
+
+        RoundPlanner.schedule_round = counted
+        return self
+
+    def __exit__(self, *exc):
+        from poseidon_tpu_torch.graph.instance import RoundPlanner
+
+        RoundPlanner.schedule_round = self._orig
+
+    def take(self) -> list:
+        """The rounds counted since the last take."""
+        out = list(self.rounds)
+        self.rounds.clear()
+        return out
+
+
+def _harness_drive(label, counts, fn, *, device_solves=False):
+    """One harness drive (``fn()``, a soak or a scenario drive, or a
+    scenario's scoring) on the card: a drive's server on the card, its
+    rounds' launches, device solves and host certificates apart from its
+    precompile's launches.  With ``device_solves`` its rounds must have
+    solved on the card, and launched every kernel of each route taken.
+    Returns ``fn()``'s result and those counts."""
+    from poseidon_tpu_torch.ops import _kernels
+
+    l0 = dict(_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    res = fn()
+    wall = time.perf_counter() - t0
+    rounds = counts.take()
+    launches = _path_launches(rounds)
+    pre = {k: _kernels.LAUNCHES[k] - l0[k] - launches[k]
+           for k in KERNEL_NAMES}
+    if "device" in res and res["device"] != DEVICE.type:
+        fail(f"[{label}] the server solved on {res['device']}")
+    out = {"wall_s": wall, "rounds": len(rounds), "launches": launches,
+           "precompile_launches": pre,
+           "device_solves": sum(r["device_solves"] for r in rounds),
+           "host_certs": sum(r["host_certs"] for r in rounds),
+           "routes": dict(sum((Counter(r["routes"]) for r in rounds),
+                              Counter()))}
+    if device_solves:
+        if not out["device_solves"] or not any(launches.values()):
+            fail(f"[{label}] the rounds made no device solve: {out}")
+        _check_routes(label, rounds, launches)
+    log(f"  [{label}] {wall:.1f} s; {out['rounds']} rounds, device solves "
+        f"{out['device_solves']}, host certificates {out['host_certs']}, "
+        f"solves by route {out['routes']}, launches {launches} "
+        f"(precompile {pre})")
+    return res, out
+
+
+def _transfer_control() -> None:
+    """The transfer ledger counts on the card: one ``.item()`` of a CUDA
+    tensor counts 1, the sanctioned ``_host_read`` of it 0."""
+    from poseidon_tpu_torch.check.ledger import TransferLedger
+    from poseidon_tpu_torch.ops import transport as T
+
+    t = torch.tensor([5], dtype=torch.int32, device=DEVICE)
+    with TransferLedger(budget=None) as led:
+        v = t.item()
+    with TransferLedger(budget=None) as led_seam:
+        w = T._host_read(t).tolist()
+    if (v, w, led.implicit_transfers, led_seam.implicit_transfers) != \
+            (5, [5], 1, 0):
+        fail(f"[soak] the transfer ledger's control: .item() counted "
+             f"{led.implicit_transfers} (1 expected), _host_read "
+             f"{led_seam.implicit_transfers} (0 expected)")
+    log("  [soak] transfer ledger control: a CUDA .item() counts 1, "
+        "_host_read 0")
+
+
+def soak_phase() -> dict:
+    """The smoke soak on the card (the full stack under the smoke fault
+    plan: every gate, the budget-0 ledger quartet in warm rounds among
+    them), then the same soak again with the first run's digests
+    expected: the rerun must reproduce them.  At 200 machines the host
+    certificate answers every solve of those runs, so a third run turns
+    it off (``POSEIDON_HOST_CERT=0``): every solve on the card, the same
+    gates and the same digests."""
+    from poseidon_tpu_torch.chaos import run_soak
+
+    c = SOAK
+    out = str(HARNESS_OUT / "soak")
+    _transfer_control()
+
+    def soak(**kw):
+        return run_soak(machines=c["machines"], rounds=c["rounds"],
+                        plan=c["plan"], seed=c["seed"], out_dir=out,
+                        device=DEVICE.type, **kw)
+
+    quartet_keys = ("warm_fresh_compiles", "warm_implicit_transfers",
+                    "warm_numeric_anomalies", "warm_lock_order_edges")
+    runs = {}
+    with _RoundCounts() as counts:
+        for name, hatch, expect, dev in (
+                ("soak", None, False, False),
+                ("soak-rerun", None, True, False),
+                ("soak-device", "0", True, True)):
+            _set_env("POSEIDON_HOST_CERT", hatch)
+            try:
+                kw = ({"expect_digests": runs["soak"][0]["digests"]}
+                      if expect else {})
+                res, info = _harness_drive(name, counts,
+                                           lambda: soak(**kw),
+                                           device_solves=dev)
+            finally:
+                _set_env("POSEIDON_HOST_CERT", None)
+            if not res["ok"]:
+                fail(f"[{name}] failed: {res.get('failure')} (flight "
+                     f"trace {res.get('trace_path')})")
+            if expect and not (res.get("reproduced")
+                               and res["digests"]
+                               == runs["soak"][0]["digests"]):
+                fail(f"[{name}] did not reproduce the digests: "
+                     f"{res.get('digest_mismatches')}")
+            quartet = {k: res[k] for k in quartet_keys}
+            if any(quartet.values()):
+                fail(f"[{name}] the warm rounds broke a budget of 0: "
+                     f"{quartet}")
+            info["quartet"] = quartet
+            info["tiers"] = res["tiers"]
+            runs[name] = (res, info)
+    first, info = runs["soak"]
+    fired = sorted({e["kind"] for e in first["fired"]})
+    log(f"  [soak] {first['rounds_run']} rounds, every gate passed in all "
+        f"three runs; warm-round ledgers {json.dumps(info['quartet'])}; "
+        f"tiers {first['tiers']}; faults fired {fired}; the rerun and the "
+        f"device-solved run reproduced all {len(first['digests'])} digests")
+    return {"runs": {k: v[1] for k, v in runs.items()}, "fired": fired,
+            "launches": _sum_launches(v[1] for v in runs.values()),
+            "precompile_launches": _sum_launches(
+                (v[1] for v in runs.values()), "precompile_launches"),
+            "lock_contention_ns": first["lock_contention_ns"]}
+
+
+def _sum_launches(infos, key="launches") -> dict:
+    out = {k: 0 for k in KERNEL_NAMES}
+    for info in infos:
+        out = _add(out, info[key])
+    return out
+
+
+def scenario_phase() -> dict:
+    """The five named scenarios on the card, each driven synchronous and
+    streaming (every gate passed, equal placement and delta digests) and
+    scored over the perturbation seeds (every score positive: no
+    perturbed drive failed a gate).  At 200 machines the host certificate
+    answers most solves, so each scenario is driven once more with it off
+    (``POSEIDON_HOST_CERT=0``): every solve on the card, every gate
+    passed, the synchronous drive's digests."""
+    from poseidon_tpu_torch.scenario import (
+        SCENARIOS,
+        drive_scenario,
+        named_scenario,
+        score_scenario,
+    )
+
+    c = SCENARIO
+    _set_env("POSEIDON_SCENARIO_OUT", str(HARNESS_OUT / "scenario"))
+    rows = {}
+    try:
+        with _RoundCounts() as counts:
+            for name in SCENARIOS:
+                plan = named_scenario(name, machines=c["machines"],
+                                      rounds=c["rounds"], seed=c["seed"])
+                tag = f"scenario {name}"
+                sync, i_sync = _harness_drive(
+                    f"{tag} synchronous", counts,
+                    lambda: drive_scenario(plan, device=DEVICE.type))
+                stream, i_stream = _harness_drive(
+                    f"{tag} streaming", counts,
+                    lambda: drive_scenario(plan, streaming=True,
+                                           device=DEVICE.type))
+                _set_env("POSEIDON_HOST_CERT", "0")
+                try:
+                    dev, i_dev = _harness_drive(
+                        f"{tag} device-solved", counts,
+                        lambda: drive_scenario(plan, device=DEVICE.type),
+                        device_solves=True)
+                finally:
+                    _set_env("POSEIDON_HOST_CERT", None)
+                for mode, res in (("synchronous", sync),
+                                  ("streaming", stream),
+                                  ("device-solved", dev)):
+                    if not res["ok"]:
+                        fail(f"[{tag}] the {mode} drive failed: "
+                             f"{res.get('failure')} (flight trace "
+                             f"{res.get('trace_path')})")
+                    if (res["digests"], res["delta_digests"]) != \
+                            (sync["digests"], sync["delta_digests"]):
+                        fail(f"[{tag}] the {mode} drive's digests differ "
+                             "from the synchronous drive's")
+                score, i_score = _harness_drive(
+                    f"{tag} scoring", counts,
+                    lambda: score_scenario(plan, baseline=sync,
+                                           device=DEVICE.type))
+                if not score["robustness_score"] > 0:
+                    fail(f"[{tag}] robustness score "
+                         f"{score['robustness_score']}: "
+                         f"{score.get('failures')}")
+                drives = {"synchronous": i_sync, "streaming": i_stream,
+                          "device_solved": i_dev, "scoring": i_score}
+                rows[name] = {
+                    "arrivals": plan.total_arrivals(),
+                    "objective": sync["objective"], "tiers": sync["tiers"],
+                    "robustness_score": score["robustness_score"],
+                    "regression_p90": score["regression_p90"],
+                    "placement_divergence": score["placement_divergence"],
+                    "drives": drives,
+                    "launches": _sum_launches(drives.values()),
+                    "precompile_launches": _sum_launches(
+                        drives.values(), "precompile_launches"),
+                }
+                log(f"  [{tag}] {plan.total_arrivals()} arrivals; "
+                    "synchronous, streaming and device-solved digests "
+                    f"equal; score {score['robustness_score']} (p90 "
+                    f"regression {score['regression_p90']}, placement "
+                    f"divergence {score['placement_divergence']})")
+    finally:
+        _set_env("POSEIDON_SCENARIO_OUT", None)
+    return {"scenarios": rows,
+            "launches": _sum_launches(rows.values()),
+            "precompile_launches": _sum_launches(rows.values(),
+                                                 "precompile_launches")}
+
+
+HARNESS_PHASES = ("replay", "pressure", "soak", "scenario")
+
+
+def harness_phases(names=HARNESS_PHASES) -> dict:
+    """The replay, pressure, soak and scenario phases, in that order."""
+    fns = {"replay": replay_phase, "pressure": pressure_phase,
+           "soak": soak_phase, "scenario": scenario_phase}
+    out = {}
+    for name in names:
+        log(f"{name} phase")
+        t0 = time.perf_counter()
+        out[name] = fns[name]()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        log(f"  [{name}] phase took {out[name]['phase_s']:.1f} s")
+    return out
 
 
 def main_path_cases(capture):
@@ -2294,6 +2830,7 @@ def compare(runs: int, toggle=None) -> int:
     from poseidon_tpu_torch.utils import stagetimer
 
     info = device_info()
+    _timers(True)
     build_kernels()
     times = {}
     for label, big, vec, scale in kernel_cases()[1]:
@@ -2336,13 +2873,51 @@ def compare(runs: int, toggle=None) -> int:
     return 0
 
 
+def _timers(on: bool) -> None:
+    """The stage timers (the tracer's aggregate mode) on or off."""
+    _set_env("POSEIDON_STAGE_TIMERS", "1" if on else "0")
+
+
+def _harness_report(info, harness) -> dict:
+    """The harness phases' numbers for the log, tagged with the card.
+    A phase's ``launches`` are its rounds' (the kernels line's path
+    counts), ``precompile_launches`` its servers' precompiles'."""
+    out = {"card": info["smi"]}
+    for name, res in harness.items():
+        row = {"phase_s": res["phase_s"], "launches": res["launches"]}
+        if "summary" in res:
+            row["summary"] = res["summary"]
+            row["rounds"] = [
+                {k: r["metrics"][k] for k in (
+                    "total_seconds", "solve_seconds", "num_tasks",
+                    "num_ecs", "placed", "preempted", "migrated",
+                    "solve_tier", "fresh_compiles", "implicit_transfers",
+                    "numeric_anomalies", "lock_contention_ns")}
+                for r in res["rounds"]]
+        if "capacity" in res:
+            row["capacity_summary"] = res["capacity"]["summary"]
+        for k in ("precompile_launches", "plain_summary", "runs",
+                  "fired", "scenarios"):
+            if k in res:
+                row[k] = res[k]
+        out[name] = row
+    return out
+
+
 def main(argv) -> int:
     if argv[:1] == ["--compare"] and argv[2:3] == ["disagg"]:
         return compare_disagg(int(argv[1]), (argv[3:4] or [None])[0])
     if argv[:1] == ["--compare"]:
         return compare(int(argv[1]), (argv[2:3] or [None])[0])
     info = device_info()
+    _timers(True)
     build_kernels()
+    if argv[:1] == ["--phases"]:
+        # A subset of the replay, pressure, soak and scenario phases
+        # alone (no kernel comparison, no result line).
+        harness = harness_phases(argv[1].split(","))
+        log("harness phases: " + json.dumps(_harness_report(info, harness)))
+        return 0
     fused, tiled, gu, disagg, program, l2_rate = kernel_phase()
     capture = {}
     results, launches, ring_cost = main_path(capture)
@@ -2370,6 +2945,9 @@ def main(argv) -> int:
     glue = glue_drive()
     launches["glue"] = _path_launches(glue["rounds"])
     launches["glue-restored"] = _path_launches(glue["restored"])
+    harness = harness_phases()
+    for name in HARNESS_PHASES:
+        launches[name] = harness[name]["launches"]
     # Output check: the wave placed pods and every round certified (the
     # drive fails otherwise); the churn rounds re-placed the churned pods.
     wave = results["main"]
@@ -2419,6 +2997,7 @@ def main(argv) -> int:
                  "round.solve_band", "round.cost_build")}}
             for r in glue["rounds"]],
          "restored_wave_s": glue["restored"][0]["wall_s"]}))
+    log("harness phases: " + json.dumps(_harness_report(info, harness)))
     print(info["smi"], flush=True)
     print(json.dumps(kernels_record(fused, tiled, gu, disagg, launches)),
           flush=True)

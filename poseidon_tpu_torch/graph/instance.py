@@ -34,7 +34,7 @@ from __future__ import annotations
 import enum
 import logging
 import time
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, fields
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +44,7 @@ from poseidon_tpu_torch.costmodel.delta import CostPlaneCache
 from poseidon_tpu_torch.graph.pipeline import CostPipeline, pipelining_enabled
 from poseidon_tpu_torch.graph.state import ClusterState
 from poseidon_tpu_torch.obs import history as _history
+from poseidon_tpu_torch.obs import trace as _trace
 from poseidon_tpu_torch.ops import transport_pruned as tp
 from poseidon_tpu_torch.ops.transport import (
     INF_COST,
@@ -106,6 +107,25 @@ class RoundMetrics:
     unscheduled: int = 0
     # Device solves this round (host-certificate answers dispatch none).
     device_calls: int = 0
+    # Compile events this round (check/ledger.py counter diff): a kernel
+    # build or load, or a solve key's (route, padded shape, scale) first
+    # sight in the process.  A warm steady-state round must report 0.
+    fresh_compiles: int = 0
+    # Implicit device->host scalar syncs this round (check/ledger.py
+    # implicit_transfer_count diff): ``item``/``int``/``bool``... on a
+    # CUDA tensor outside transport._host_read, the sanctioned seam.
+    # Must be 0.
+    implicit_transfers: int = 0
+    # Numeric anomalies observed in this round's solve window
+    # (check/ledger.numeric_anomaly_count diff): non-finite floats or
+    # int32 values riding the rails at transport._host_read, plus
+    # utils.numerics saturation-certificate trips.  0 whenever
+    # validation is off (POSEIDON_NUMERICS_LEDGER unset and no ledger
+    # window open); must be 0 when it is on.
+    numeric_anomalies: int = 0
+    # Nanoseconds threads spent waiting on tracked locks during this
+    # round's solve window (utils/locks.py process counter diff).
+    lock_contention_ns: int = 0
     # Bellman-Ford sweeps inside the ladders' global updates.
     bf_sweeps: int = 0
     # Gang-atomicity repair firings (_forbid_partial_gangs) this round.
@@ -145,6 +165,12 @@ class RoundMetrics:
     telem_gu_firings: int = 0
     telem_decay_half_life: float = 0.0
     telem_iters_to_90: int = 0
+    # Mesh-sharded band tier (the reference's POSEIDON_SHARDED_BANDS):
+    # the port has no sharded tier yet, so these stay 0 and ride the
+    # wire only to keep its key set the reference's.
+    sharded_bands: int = 0
+    shard_devices: int = 0
+    shard_imbalance: float = 0.0
     # The worst band's tier: "pruned" (shortlist + full-plane
     # certificate), "dense", "host_greedy" (uncertified last resort),
     # or "quiet"/"none" for skipped/degenerate rounds.
@@ -166,12 +192,40 @@ class RoundMetrics:
     admission_staleness_s: float = 0.0
     placements_per_sec: float = 0.0
 
+    # Serialization schema version: bumped whenever a field is renamed
+    # or its meaning changes (pure additions keep the version — from_dict
+    # defaults missing fields and drops unknown ones).
+    SCHEMA = 1
+
     def to_dict(self) -> dict:
-        """JSON-safe dict of every field."""
+        """THE round-metrics wire format: JSON-safe, schema-versioned.
+
+        Single source of truth for every serialization of a round —
+        chaos soak round records (``chaos/soak.py``), the round-history
+        ring and the Prometheus exporter (``obs/metrics.observe_round``)
+        all consume this dict."""
         d = asdict(self)
         if d["gap_bound"] == float("inf"):
-            d["gap_bound"] = "inf"
+            d["gap_bound"] = "inf"  # json has no Infinity literal
+        d["schema"] = self.SCHEMA
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RoundMetrics":
+        """Inverse of ``to_dict``; tolerant of unknown keys (forward
+        compat) and missing ones (dataclass defaults apply)."""
+        d = dict(d)
+        schema = int(d.pop("schema", cls.SCHEMA))
+        if schema > cls.SCHEMA:
+            raise ValueError(
+                f"RoundMetrics schema {schema} is newer than supported "
+                f"({cls.SCHEMA})"
+            )
+        if d.get("gap_bound") == "inf":
+            d["gap_bound"] = float("inf")
+        known = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
 
 @dataclass
 class _WarmState:
@@ -408,6 +462,13 @@ class RoundPlanner:
         # collected this round, and their JSON-safe digests.
         self._telem_curves: list = []
         self.last_solve_curves: list = []
+        # Chaos seam (chaos/): when set, an object whose
+        # ``solver_fault() -> (force_uncertified, partial_fraction)`` is
+        # consulted per band — forcing the degraded host-greedy tier
+        # (certificate-failure injection) and/or capping the fraction of
+        # supply placed (partial-Schedule-response injection).  None in
+        # production; the solve path itself is unchanged when unset.
+        self.chaos = None
 
     def set_cost_model(self, cost_model) -> None:
         """Swap the cost model before a drive's first round.  Rebuilds the
@@ -482,25 +543,162 @@ class RoundPlanner:
             device=self.device, **kw
         )
 
-    def warm_up(self) -> float:
-        """Build (or load) the CUDA kernels before the first round, so no
-        round pays the build.  Returns the seconds it took (0 on the CPU,
-        where the routes run their plain versions)."""
-        if self.device.type != "cuda":
-            return 0.0
-        from poseidon_tpu_torch.ops import _kernels
+    def precompile(self, max_ecs: int = 256,
+                   max_machines: int = 0) -> int:
+        """Run the solve ladder ahead of traffic.
 
-        t0 = time.perf_counter()
-        _kernels.lib()
-        return time.perf_counter() - t0
+        One synthetic solve per EC-row bucket (8, 16, ... up to
+        ``max_ecs``) at the machine-count bucket of the CURRENT cluster —
+        plus, when ``max_machines`` exceeds it, at that expected-growth
+        bucket too — covering every solve key (route, padded shape and
+        scale) churn rounds can produce: the selective path's reduced
+        widths at the full bucket's scale, the coarse start's [E, 256]
+        width, and, where the one-program coarse solve is on, its probe
+        at the full width and at the pruned tier's reduced widths.  So
+        every route's first launch (the kernels' load included) and
+        every key's first sight happen before traffic, and the compile
+        ledger's warm-round budget of 0 is unambiguous.  The scale
+        matches production because both derive from the cost model's
+        static bound (``max_cost_hint``).  Returns the number of solve
+        keys the probes reached.
+        """
+        from poseidon_tpu_torch.check.ledger import capture_solve_keys
+        from poseidon_tpu_torch.ops import transport_coarse
+        from poseidon_tpu_torch.ops.transport import (
+            COARSE_MIN_MACHINES,
+            coarse_group_count,
+            solve_transport,
+        )
+        m_now = len(self.state.machines)
+        m_buckets = sorted({
+            bucket_size(m) for m in (m_now, max_machines) if m > 0
+        })
+        hint = self.cost_model.max_cost()
+        rng = np.random.default_rng(0)
+        e_cap, _ = padded_shape(max(max_ecs, 1), 1)
+        probe_costs = np.full((1, 1), hint, dtype=np.int32)
+        probe_unsched = np.full(1, hint, dtype=np.int32)
+        dev = self.device
+        with capture_solve_keys() as keys:
+            for m_bucket in m_buckets:
+                e_bucket = 8
+                while e_bucket <= e_cap:
+                    # The selective (column-reduced) path solves sparse
+                    # rounds at power-of-four widths below the full
+                    # bucket, at the full bucket's scale (the scale
+                    # depends on both padded axes): probe those keys too.
+                    widths = [(m_bucket, None)]
+                    scale_full, _ = derive_scale(
+                        probe_costs, probe_unsched, hint,
+                        *padded_shape(e_bucket, m_bucket),
+                    )
+                    w = 128
+                    while w * 4 < m_bucket * 3:
+                        widths.append((w, scale_full))
+                        w *= 4
+                    if (m_bucket >= COARSE_MIN_MACHINES
+                            and coarse_group_count(m_bucket) == 256):
+                        # The coarse wave warm start solves [E, 256] at
+                        # the full bucket's scale.
+                        widths.append((256, scale_full))
+                    if (m_bucket >= COARSE_MIN_MACHINES
+                            and accel_policy("POSEIDON_COARSE_FUSED", dev)):
+                        # The one-program coarse solve: the full width
+                        # (scale derived in force mode, as production's
+                        # dense planes do) plus the pinned-scale reduced
+                        # widths the wave-shaped prune gate opens (the
+                        # covering union targets 2x supply, landing at
+                        # <= half width).
+                        probe_widths = [(m_bucket, None)]
+                        if (e_bucket <= 64
+                                and m_bucket >= tp.PRUNE_WAVE_MIN_COLS
+                                and tp.row_gate_ok(e_bucket, m_bucket,
+                                                   1 << 30)):
+                            probe_widths += [
+                                (w, scale_full)
+                                for w in sorted({m_bucket // 4,
+                                                 m_bucket // 2})
+                                if w >= COARSE_MIN_MACHINES
+                            ]
+                        for width, pinned in probe_widths:
+                            probe_c = rng.integers(
+                                0, hint + 1, size=(e_bucket, width)
+                            ).astype(np.int32)
+                            transport_coarse.solve_transport_coarse_fused(
+                                probe_c, np.ones(e_bucket, dtype=np.int32),
+                                np.ones(width, dtype=np.int32),
+                                np.full(e_bucket, hint, dtype=np.int32),
+                                arc_capacity=np.ones(
+                                    (e_bucket, width), dtype=np.int32
+                                ),
+                                max_cost_hint=hint, max_iter_total=8192,
+                                force=True, scale=pinned, device=dev,
+                            )
+                    for width, scale in widths:
+                        costs = rng.integers(
+                            0, hint + 1, size=(e_bucket, width)
+                        ).astype(np.int32)
+                        # greedy_init is off for every probe: an easy
+                        # probe whose greedy start certifies exactly is
+                        # answered on the host with no device solve,
+                        # skipping the very key this loop exists for.
+                        solve_transport(
+                            costs, np.ones(e_bucket, dtype=np.int32),
+                            np.ones(width, dtype=np.int32),
+                            np.full(e_bucket, hint, dtype=np.int32),
+                            arc_capacity=np.ones(
+                                (e_bucket, width), dtype=np.int32
+                            ),
+                            max_cost_hint=hint, greedy_init=False,
+                            device=dev,
+                            **({} if scale is None else {"scale": scale}),
+                        )
+                    e_bucket *= 2
+        return len(keys)
 
     # ------------------------------------------------------------------ round
 
     def schedule_round(self) -> Tuple[List[Delta], RoundMetrics]:
-        deltas, metrics = self._schedule_round()
-        if metrics.total_seconds > 0:
-            metrics.placements_per_sec = round(
-                metrics.placed / metrics.total_seconds, 3
+        """One round under a ``round`` tracer span: the span parents the
+        stage spans opened beneath it (``round.view_build`` ...
+        ``round.assign``, the ``solve.*`` stages) and carries the
+        round's headline attributes, so an exported Perfetto timeline
+        decomposes the round without consulting the metrics stream."""
+        with _trace.span("round") as sp:
+            deltas, metrics = self._schedule_round()
+            # Stamped here, so the figure rides the wire identically
+            # whatever drove the round.
+            if metrics.total_seconds > 0:
+                metrics.placements_per_sec = round(
+                    metrics.placed / metrics.total_seconds, 3
+                )
+            sp.set(
+                round=metrics.round_index,
+                solve_tier=metrics.solve_tier,
+                tasks=metrics.num_tasks,
+                ecs=metrics.num_ecs,
+                machines=metrics.num_machines,
+                placed=metrics.placed,
+                unscheduled=metrics.unscheduled,
+                iterations=metrics.iterations,
+                device_calls=metrics.device_calls,
+                fresh_compiles=metrics.fresh_compiles,
+                implicit_transfers=metrics.implicit_transfers,
+                numeric_anomalies=metrics.numeric_anomalies,
+                repair_firings=metrics.repair_firings,
+                pruned_bands=metrics.pruned_bands,
+                pruned_width=metrics.pruned_width,
+                pruned_price_out_rounds=metrics.pruned_price_out_rounds,
+                pruned_escalations=metrics.pruned_escalations,
+                pruned_cert_accepts=metrics.pruned_cert_accepts,
+                ladder_entry_phase=metrics.ladder_entry_phase,
+                cost_delta_hits=metrics.cost_delta_hits,
+                cost_rows_rebuilt=metrics.cost_rows_rebuilt,
+                cost_cols_rebuilt=metrics.cost_cols_rebuilt,
+                pipeline_overlap_s=metrics.pipeline_overlap_s,
+                telem_samples=metrics.telem_samples,
+                telem_iters_to_90=metrics.telem_iters_to_90,
+                converged=metrics.converged,
             )
         # Round-history ring (/debug/rounds): every completed round lands
         # here, so a live process is interrogable.
@@ -551,8 +749,13 @@ class RoundPlanner:
         streaming = hatch_bool("POSEIDON_STREAMING")
         _admitted, adm_stale = st.admission_cut()
         ing_rows, ing_cols = st.take_ingest_hints()
-        if streaming:
-            self._plane_cache.set_round_hints(ing_rows, ing_cols)
+        # The synchronous loop installs an empty set all the same, so
+        # every round takes the cache's ingest lock under its caller's
+        # locks from round 0 on: the first warm delta build, which reads
+        # the hints, then takes no new lock order (ROADMAP §C).
+        self._plane_cache.set_round_hints(
+            ing_rows if streaming else (), ing_cols if streaming else ()
+        )
         # Harvest the PREVIOUS round's cross-round speculation: every
         # second its build ran after submission — the previous round's
         # own tail, the glue side's enactment, RPC transit — is work
@@ -590,7 +793,18 @@ class RoundPlanner:
             self._collect_prior(view, mt)
 
         t_solve = time.perf_counter()
+        from poseidon_tpu_torch.check.ledger import (
+            fresh_compile_count,
+            implicit_transfer_count,
+            numeric_anomaly_count,
+        )
+        from poseidon_tpu_torch.utils.locks import lock_contention_ns
+
         calls0 = device_call_count()
+        fresh0 = fresh_compile_count()
+        transfers0 = implicit_transfer_count()
+        anomalies0 = numeric_anomaly_count()
+        contention0 = lock_contention_ns()
         # Assignment pipelining: a finished band's EC->task assignment
         # (host numpy) runs on a worker thread while the next band's
         # solve occupies the device.  The last band's chunk is deferred
@@ -630,6 +844,10 @@ class RoundPlanner:
                     pass
             raise
         metrics.device_calls = device_call_count() - calls0
+        metrics.fresh_compiles = fresh_compile_count() - fresh0
+        metrics.implicit_transfers = implicit_transfer_count() - transfers0
+        metrics.numeric_anomalies = numeric_anomaly_count() - anomalies0
+        metrics.lock_contention_ns = lock_contention_ns() - contention0
         metrics.solve_seconds = time.perf_counter() - t_solve
         if metrics.gap_bound == float("inf"):
             metrics.converged = False
@@ -966,6 +1184,7 @@ class RoundPlanner:
                             base_slots - committed_slots, 0
                         ).astype(np.int32),
                     ),
+                    parent_span_id=self._round_span_id(),
                 )
 
             t_band = time.perf_counter()
@@ -975,7 +1194,8 @@ class RoundPlanner:
                 self._pipeline_overlap += pipe.overlap_with(
                     t_band, time.perf_counter()
                 )
-            self._note_solve_telemetry(band, sol)
+            self._note_solve_telemetry(band, sol, t_band,
+                                       time.perf_counter())
             objective += sol.objective
             gap = max(gap, sol.gap_bound)
             iters += sol.iterations
@@ -1025,6 +1245,7 @@ class RoundPlanner:
                         base_slots - committed_slots, 0
                     ).astype(np.int32),
                 ),
+                parent_span_id=self._round_span_id(),
             )
             self._cross_spec_t = time.perf_counter()
 
@@ -1050,13 +1271,21 @@ class RoundPlanner:
         self._fold_telemetry(metrics)
         return flows_full
 
-    def _note_solve_telemetry(self, band, sol) -> None:
-        """Collect one band solve's convergence curve, when the telemetry
-        ring captured one."""
+    def _note_solve_telemetry(self, band, sol, t0: float,
+                              t1: float) -> None:
+        """Collect one band solve's convergence curve (when the
+        telemetry ring captured one) and, under span recording, lay it
+        onto the timeline as Perfetto counter tracks spread linearly
+        over the solve's wall window [t0, t1]."""
         t = sol.telemetry
         if t is None or t.samples() == 0:
             return
         self._telem_curves.append((int(band), t))
+        tr = _trace.tracer()
+        if tr.tracing():
+            tr.counter_series("conv.active_excess", t0, t1,
+                              t.active_excess)
+            tr.counter_series("conv.active_rows", t0, t1, t.active_rows)
 
     def _fold_telemetry(self, metrics: RoundMetrics) -> None:
         """Roll the collected curves into the RoundMetrics scalars and
@@ -1092,6 +1321,14 @@ class RoundPlanner:
             self._cost_pipeline = CostPipeline(self._plane_cache)
         return self._cost_pipeline
 
+    @staticmethod
+    def _round_span_id():
+        """Id of the innermost recorded span on this thread (the round
+        span during a solve), or None — the cross-thread parent for the
+        pipeline worker's spans."""
+        cur = _trace.current()
+        return getattr(cur, "id", None) or None
+
     def _note_build_stats(self, stats: dict) -> None:
         self._last_build_stats = stats
         if stats.get("delta_hit"):
@@ -1106,19 +1343,37 @@ class RoundPlanner:
     def _note_tier(self, tier: str) -> None:
         self._tier_rank = max(self._tier_rank, self._TIERS.index(tier))
 
-    def _solve_host_greedy(self, ecs_b, cm, col_cap):
+    def _solve_host_greedy(self, ecs_b, cm, col_cap, partial_fraction=None):
         """The last rung of the degraded ladder: a deterministic,
         host-only feasible placement (cheapest-arc greedy) used when
-        neither the pruned nor the dense solve can certify (a
-        budget-exhausted cold solve).  Feasible by construction
-        (column/arc caps respected), gang-atomic (partially-covered gang
-        rows are dropped whole), and UNCERTIFIED: ``gap_bound`` is inf,
-        so the round reports ``converged=False`` and no warm frame is
-        saved."""
+        neither the pruned nor the dense solve can certify — injected
+        certificate failure, or a budget-exhausted cold solve.  Feasible
+        by construction (column/arc caps respected), gang-atomic
+        (partially-covered gang rows are dropped whole), and
+        UNCERTIFIED: ``gap_bound`` is inf, so the round reports
+        ``converged=False`` and no warm frame is saved.
+        ``partial_fraction`` caps the total units placed (the
+        partial-Schedule-response fault: the service answers with a
+        deliberately incomplete round)."""
         E, M = cm.costs.shape
         flows = greedy_flows(
             cm.costs, ecs_b.supply, col_cap, cm.arc_capacity
         )
+        if partial_fraction is not None:
+            budget = int(int(ecs_b.supply.sum()) * partial_fraction)
+            for e in range(E):
+                row_units = int(flows[e].sum())
+                if row_units <= budget:
+                    budget -= row_units
+                    continue
+                # Trim this row to the remaining budget, columns in
+                # ascending order, then zero every later row.
+                keep = budget
+                for m in range(M):
+                    take = min(int(flows[e, m]), keep)
+                    flows[e, m] = take
+                    keep -= take
+                budget = 0
         if ecs_b.is_gang is not None and ecs_b.is_gang.any():
             placed = flows.sum(axis=1)
             partial = (
@@ -1149,6 +1404,16 @@ class RoundPlanner:
         its budget.  Warm frames are always saved in FULL-plane
         coordinates, so carried prices survive the pruned path's column
         remap round to round."""
+        if self.chaos is not None:
+            forced, frac = self.chaos.solver_fault()
+            if forced or frac is not None:
+                # Injected certificate failure / partial round: the
+                # degraded tier serves, exactly as it would after a real
+                # double escalation.
+                sol = self._solve_host_greedy(ecs_b, cm, col_cap, frac)
+                self._note_tier("host_greedy")
+                self._warm_bands.pop(band, None)
+                return sol
         eps_start = None
         prices = flows0 = unsched0 = None
         if self.incremental:

@@ -17,10 +17,13 @@ contains, and the authoritative diff rebuilds them.
 Concurrency discipline: one single-worker executor; the worker runs ONLY
 ``cache.build`` — host numpy, never a CUDA call, so the device stream's
 order stays the main thread's — on tables frozen by the submitting
-thread (usage arrays copied at submit time), and every cache access from
-the main thread first joins the outstanding future (``_join`` under
-``_lock``), so cache mutations are strictly serialized.  The worker's
-build is timed as its own stage, ``round.cost_build_spec``.
+thread (usage arrays copied at submit time).  The authoritative build
+joins the outstanding future (``_join`` under ``_lock``) and then runs
+on the calling thread with the lock released, so cache mutations are
+strictly serialized and the pipeline's lock is never held by a thread
+inside the cache.  Spans opened on the worker carry an explicit
+cross-thread parent (the round span), giving the overlap its own
+Perfetto lane.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+from poseidon_tpu_torch.obs import trace as _trace
 from poseidon_tpu_torch.utils.hatches import hatch_bool
 from poseidon_tpu_torch.utils.locks import TrackedLock
-from poseidon_tpu_torch.utils.stagetimer import stage as _stage
 
 ENV_GATE = "POSEIDON_PIPELINE_BANDS"
 
@@ -93,7 +96,8 @@ class CostPipeline:
 
     # ------------------------------------------------------------------- API
 
-    def speculate(self, key: int, ecs_b, mt_b) -> None:
+    def speculate(self, key: int, ecs_b, mt_b,
+                  parent_span_id: Optional[int] = None) -> None:
         """Kick the worker at band k+1's plane.  ``ecs_b``/``mt_b`` must
         be frozen (the caller copies the usage arrays before submitting
         — the live committed arrays keep mutating on the main thread)."""
@@ -106,7 +110,10 @@ class CostPipeline:
             def work():
                 spec.start = time.perf_counter()
                 try:
-                    with _stage("round.cost_build_spec"):
+                    with _trace.span(
+                        "round.cost_build_spec", parent=parent_span_id,
+                        band=key,
+                    ):
                         cache.build(key, ecs_b, mt_b)
                 except BaseException as e:  # noqa: BLE001 - recorded, not raised
                     spec.error = e
@@ -116,12 +123,21 @@ class CostPipeline:
             self._future = self._ensure_pool().submit(work)
 
     def build(self, key: int, ecs_b, mt_b):
-        """The authoritative build: joins the worker, then patches the
-        plane on the calling thread.  Returns ``(cm, stats)``."""
+        """The authoritative build: joins the outstanding speculation
+        under the lock, then patches the plane on the calling thread
+        outside it.  Returns ``(cm, stats)``.
+
+        Builds stay serialized without the lock: only the calling thread
+        submits speculations, and it is here, so after the join no build
+        is in flight until it speculates again.  The reference builds
+        under this lock, so a warm round's delta build (the hints are
+        read only there) nests the cache's ingest lock inside it for the
+        first time, which its warm-round lock-order gate fails (ROADMAP
+        §C); released first, the two locks never nest."""
         with self._lock:
             self._join()
-            cm = self._cache.build(key, ecs_b, mt_b)
-            return cm, self._cache.last_stats
+        cm = self._cache.build(key, ecs_b, mt_b)
+        return cm, self._cache.last_stats
 
     def overlap_with(self, window_start: float, window_end: float) -> float:
         """Seconds the last speculative build ran inside [window_start,

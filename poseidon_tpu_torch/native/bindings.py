@@ -109,6 +109,10 @@ def _load():
         lib.gc_num_machines.argtypes = [ctypes.c_void_p]
         lib.gc_num_machines.restype = ctypes.c_int64
         _lib = lib
+    # The core's build or load is this process's compile event.
+    from poseidon_tpu_torch.check.ledger import note_compile
+
+    note_compile("native graph core")
     return _lib
 
 

@@ -684,12 +684,34 @@ def observe_locks(registry: Optional[Registry] = None) -> None:
 
 
 def observe_ledger(registry: Optional[Registry] = None) -> None:
-    """Expose the process-wide ledger counters every round feed reads.
-    The port has the lock ledger (utils/locks.py); the JAX package's
-    compile and transfer series have no port yet, so this exports the
-    lock series only — what the reference exports in a process without
-    jax."""
+    """Expose the ledgers' process-wide counters.  The compile and
+    transfer counters (check/ledger.py) are read only when torch is
+    already imported: the glue process must not pay a torch import for
+    two series that would read 0 anyway.  The lock ledger rides along
+    (every call site feeds both): its counters are torch-free, so they
+    export before the gate.  The reference's ``poseidon_retraces_total``
+    has no torch event and no series here."""
+    import sys
+
     observe_locks(registry)
+    if "torch" not in sys.modules:
+        return
+    from poseidon_tpu_torch.check.ledger import (
+        fresh_compile_count,
+        implicit_transfer_count,
+    )
+
+    reg = registry or _REGISTRY
+    reg.counter(
+        "poseidon_fresh_compiles_total",
+        "Process-wide compile events: kernel builds or loads and solve "
+        "keys' first sights (check/ledger.py)",
+    ).set_total(float(fresh_compile_count()))
+    reg.counter(
+        "poseidon_implicit_transfers_total",
+        "Process-wide implicit device->host syncs on CUDA tensors outside "
+        "the sanctioned read (check/ledger.py)",
+    ).set_total(float(implicit_transfer_count()))
 
 
 def rpc_attempt(rpc: str, registry: Optional[Registry] = None) -> None:

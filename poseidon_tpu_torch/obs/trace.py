@@ -22,7 +22,7 @@ disabled path is two dict probes and no allocation beyond the kwargs.
 
 Timing uses ``time.perf_counter()`` only (telemetry, never decisions);
 this module is the ONE place in ``obs/`` that reads a clock.  The port's
-``utils.stagetimer`` still keeps its own table beside this tracer.
+``utils.stagetimer`` is a shim over this tracer, as the reference's is.
 """
 
 from __future__ import annotations
@@ -44,8 +44,9 @@ STAGE_ENV = "POSEIDON_STAGE_TIMERS"
 # bound.  Past the cap, spans are dropped (counted in ``dropped``) while
 # totals keep accumulating — the aggregate view stays honest.
 MAX_SPANS = 200_000
-# Counter-sample cap (Perfetto counter tracks): the buffer is bounded
-# like the span one.
+# Counter-sample cap (Perfetto counter tracks — the convergence-curve
+# series): a 512-sample curve per band solve adds up fast in a long
+# traced window, so the buffer is bounded like the span one.
 MAX_COUNTER_SAMPLES = 500_000
 
 _ids = itertools.count(1)
@@ -258,15 +259,59 @@ class Tracer:
             else:
                 self.dropped_counters += 1
 
+    def counter_series(self, name: str, t0: float, t1: float,
+                       values) -> None:
+        """Record a whole series distributed evenly over the window
+        [t0, t1] (absolute ``perf_counter`` endpoints) — how a device
+        solve's per-iteration convergence curve lands on the timeline:
+        the host only knows the solve's wall window, so samples are
+        laid out linearly across it.  No-op when recording is off."""
+        if not self.tracing():
+            return
+        values = list(values)
+        n = len(values)
+        if n == 0:
+            return
+        span_s = max(t1 - t0, 0.0)
+        step = span_s / max(n - 1, 1)
+        recs = [
+            {"name": name, "ts": (t0 + i * step) - self._epoch,
+             "value": float(v)}
+            for i, v in enumerate(values)
+        ]
+        with self._lock:
+            room = self.max_counter_samples - len(self._counter_samples)
+            if room >= n:
+                self._counter_samples.extend(recs)
+            else:
+                self._counter_samples.extend(recs[:max(room, 0)])
+                self.dropped_counters += n - max(room, 0)
+
     def counter_samples(self) -> List[dict]:
         with self._lock:
             return list(self._counter_samples)
+
+    def drain_counter_samples(self) -> List[dict]:
+        """Return AND clear the counter samples (the flight recorder's
+        per-round window, like ``drain_spans``)."""
+        with self._lock:
+            out = self._counter_samples
+            self._counter_samples = []
+            return out
 
     # -------------------------------------------------------------- recorded
 
     def spans(self) -> List[dict]:
         with self._lock:
             return list(self._spans)
+
+    def drain_spans(self) -> List[dict]:
+        """Return AND clear the recorded spans (the per-round flight-
+        recorder window; totals are untouched)."""
+        with self._lock:
+            out = self._spans
+            self._spans = []
+            return out
 
     def export_chrome_trace(self, path: Optional[str] = None) -> dict:
         obj = chrome_trace(self.spans(), self.counter_samples())
@@ -526,12 +571,24 @@ def spans() -> List[dict]:
     return _TRACER.spans()
 
 
+def drain_spans() -> List[dict]:
+    return _TRACER.drain_spans()
+
+
 def counter(name: str, value, ts: Optional[float] = None) -> None:
     _TRACER.counter(name, value, ts=ts)
 
 
+def counter_series(name: str, t0: float, t1: float, values) -> None:
+    _TRACER.counter_series(name, t0, t1, values)
+
+
 def counter_samples() -> List[dict]:
     return _TRACER.counter_samples()
+
+
+def drain_counter_samples() -> List[dict]:
+    return _TRACER.drain_counter_samples()
 
 
 def export_chrome_trace(path: Optional[str] = None) -> dict:

@@ -138,6 +138,10 @@ def lib() -> SimpleNamespace:
             bind("coarse_disaggregate.cu",
                  "pt_coarse_disaggregate_smem_bytes", [I], ctypes.c_size_t)
             _LIB = SimpleNamespace(**fns)
+            # The kernels' build or load is this process's compile event.
+            from poseidon_tpu_torch.check.ledger import note_compile
+
+            note_compile("cuda kernels")
         return _LIB
 
 

@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from poseidon_tpu_torch.check import ledger as _ledger
 from poseidon_tpu_torch.utils.hatches import hatch_bool, hatch_int, hatch_raw
 from poseidon_tpu_torch.utils.numerics import certify_i32_total
 from poseidon_tpu_torch.utils.stagetimer import stage as _stage
@@ -319,9 +320,16 @@ def host_read_count() -> int:
 
 
 def _host_read(t: torch.Tensor) -> np.ndarray:
-    """THE device-to-host boundary of the solve path (counted)."""
+    """THE device-to-host boundary of the solve path (counted).
+
+    The sanctioned seam (the reference's ``host_fetch``): ``.cpu()`` is
+    no sync the transfer ledger counts, and with numerics validation on
+    (``check.ledger.numerics_enabled``) every value read is checked for
+    finiteness and int32 headroom."""
     _Telemetry.host_reads += 1
-    return t.cpu().numpy()
+    out = t.cpu().numpy()
+    _ledger.maybe_validate_fetched(out, site="host_read")
+    return out
 
 
 # ------------------------------------------------------------ device policy
@@ -2296,6 +2304,7 @@ def solve_transport(
     ])
     impl = route_for(E_pad, M_pad, dev)
     _Telemetry.routes[(impl, E_pad, M_pad)] += 1
+    _ledger.note_solve_key((impl, E_pad, M_pad, int(scale)))
     telem_cap = solve_telemetry_cap()
     # Device-resident operand cache (CUDA default): upload only the
     # columns that changed since the last solve at this padded shape.

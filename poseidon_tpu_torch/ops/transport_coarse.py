@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from poseidon_tpu_torch.check import ledger as _ledger
 from poseidon_tpu_torch.ops import _kernels
 from poseidon_tpu_torch.ops.transport import (
     I32,
@@ -249,6 +250,7 @@ def coarse_to_fine_band(costs, arc_cap, capacity, supply, unsched_cost,
     # ---- coarse ladder at [E, K] from the host seed
     impl_c = route_for(E, K, dev)
     _Telemetry.routes[(impl_c, E, K)] += 1
+    _ledger.note_solve_key((impl_c, E, K, int(scale)))
     Fc, _Ffb_c, prices_c, stats_c = _ladder(
         impl_c, Cg, supply, capg, unsched_cost, arcg, seed_prices,
         seed_flows, seed_fb, eps_sched_coarse, max_iter_total,
@@ -293,6 +295,7 @@ def coarse_to_fine_band(costs, arc_cap, capacity, supply, unsched_cost,
     # whole program: the full ladder gets what the coarse stage left.
     impl = route_for(E, M, dev)
     _Telemetry.routes[(impl, E, M)] += 1
+    _ledger.note_solve_key((impl, E, M, int(scale)))
     F, Ffb, prices, stats = _ladder(
         impl, costs, supply, capacity, unsched_cost, arc_cap, lifted, F0,
         fb0, rungs, max(max_iter_total - it_c, 1), global_every, bf_max,
@@ -413,6 +416,9 @@ def solve_transport_coarse_fused(
         max_iter_total = max_iter_per_phase
 
     _Telemetry.device_calls += 1
+    # The one-program coarse solve's own key (the reference's fused
+    # program compiles per shape, groups, block and scale).
+    _ledger.note_solve_key(("coarse", e_pad, M2, K, B, int(scale)))
     with _stage("solve.device"):
         # Two uploads: the [2, E, M2] planes, and the coarse instance with
         # the vectors in one int32 buffer.

@@ -74,10 +74,11 @@ class FirmamentTPUConfig:
     # Solver selection: "auction", the cost-scaling push-relabel ladder,
     # is the only solver the port has.
     flow_solver: str = "auction"
-    # Build the CUDA kernels before the first Schedule() instead of in it.
+    # Precompile ceilings: with precompile=True the first Schedule()
+    # runs the planner's precompile — the kernels' load and one probe
+    # solve per (E_bucket, M_bucket) solve key up to these bounds — so
+    # churn rounds never pay a first launch or a key's first sight.
     precompile: bool = False
-    # Precompile ceilings of the reference's shape ladder.  Accepted as
-    # hints: the port compiles nothing per shape ahead of time.
     max_machines: int = 1024
     max_ecs: int = 256
     # Default per-machine task slots when the node topology carries no

@@ -13,6 +13,8 @@ Kinds:
             policy (transport.accel_policy: on when the solve's device is
             CUDA)
   int/float numeric knob; unparseable values fall back to the default
+  flag      set to any non-empty string (latch-style markers)
+  str       string knob (paths); the default when unset or empty
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-_KINDS = ("bool_on", "bool_off", "tristate", "int", "float")
+_KINDS = ("bool_on", "bool_off", "tristate", "int", "float", "flag",
+          "str")
 
 
 @dataclass(frozen=True)
@@ -137,6 +140,30 @@ HATCHES: Tuple[Hatch, ...] = (
     Hatch("POSEIDON_LOCK_LEDGER", "bool_on", "1",
           "TrackedLock order/contention/hold accounting (utils/locks.py); "
           "0 degrades every tracked lock to a bare delegate"),
+    Hatch("POSEIDON_RACE_SEED", "int", "0",
+          "Base seed for the preemption-point race harness "
+          "(chaos/preempt.py; suite seed k runs at base + k)"),
+    Hatch("POSEIDON_RACE_SWEEP", "int", "3",
+          "Seeded interleavings each race-harness suite drives"),
+    Hatch("POSEIDON_NUMERICS_LEDGER", "bool_off", "0",
+          "Validate every _host_read result against the numerics "
+          "contract (finite floats, int32 values clear of the rails); "
+          "anomalies feed RoundMetrics.numeric_anomalies and any open "
+          "check.ledger.NumericsLedger window"),
+
+    Hatch("POSEIDON_REPLAY_PROGRESS", "flag", "",
+          "Per-round progress breadcrumbs on stderr during replay"),
+    Hatch("POSEIDON_SCENARIO_OUT", "str", "out/scenario",
+          "Flight-trace output directory for scenario drives "
+          "(scenario/drive.py; replay/flight.py re-drives traces from "
+          "here)"),
+    Hatch("POSEIDON_SCENARIO_AMPLITUDE", "float", "0.15",
+          "Cost-perturbation amplitude for robustness scoring, as a "
+          "fraction of NORMALIZED_COST added to every admissible cost "
+          "cell (scenario/score.PerturbedCostModel)"),
+    Hatch("POSEIDON_SCENARIO_SEEDS", "int", "3",
+          "How many chaos-seeded cost-perturbation drives a scenario "
+          "robustness score aggregates (scenario/score.score_scenario)"),
 )
 
 _BY_NAME = {h.name: h for h in HATCHES}
@@ -176,6 +203,22 @@ def hatch_bool(name: str) -> bool:
     if h.kind == "bool_off":
         return raw == "1"
     raise TypeError(f"hatch {name} is {h.kind}, not a bool gate")
+
+
+def hatch_flag(name: str) -> bool:
+    """True iff set to any non-empty string (latch-style markers)."""
+    h = hatch(name)
+    if h.kind != "flag":
+        raise TypeError(f"hatch {name} is {h.kind}, not a flag")
+    return bool(os.environ.get(name))
+
+
+def hatch_str(name: str) -> str:
+    """String knob (paths); the declared default when unset or empty."""
+    h = hatch(name)
+    if h.kind != "str":
+        raise TypeError(f"hatch {name} is {h.kind}, not a string knob")
+    return os.environ.get(name) or h.default
 
 
 def hatch_int(name: str, default: Optional[int] = None) -> int:

@@ -33,6 +33,12 @@ acquire, two ``perf_counter_ns`` reads and a thread-local list append.
 ``POSEIDON_LOCK_LEDGER=0`` drops even that: the wrapper degrades to a
 bare delegate (read at lock construction, the one place a per-acquire
 env probe would be too hot).
+
+The preemption-point hook (:data:`install_preempt_hook`) is the seeded
+race harness's instrumentation surface (chaos/preempt.py): when
+installed, every tracked acquire/release calls it, letting the harness
+widen interleaving windows deterministically-in-decisions without
+touching the code under test.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from __future__ import annotations
 import sys
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from poseidon_tpu_torch.utils.hatches import hatch_bool
 
@@ -67,6 +73,10 @@ _cycles: List[str] = []
 _instances: List["TrackedLock"] = []
 _active: List["LockLedger"] = []
 
+# Race-harness preemption hook (chaos/preempt.py); None = disabled, and
+# the hot path pays one global load + is-None test.
+_preempt_hook: Optional[Callable[[str, str], None]] = None
+
 _tls = threading.local()
 
 
@@ -75,6 +85,16 @@ def _stack() -> List[Tuple[str, int]]:
     if st is None:
         st = _tls.stack = []
     return st
+
+
+def install_preempt_hook(
+    hook: Optional[Callable[[str, str], None]],
+) -> None:
+    """Install (or clear, with None) the race-harness preemption hook.
+    Called as ``hook(point, lock_name)`` with point ``"acquire"`` (before
+    the inner acquire) or ``"release"`` (after the inner release)."""
+    global _preempt_hook
+    _preempt_hook = hook
 
 
 def _caller_site() -> str:
@@ -179,6 +199,9 @@ class TrackedLock:
             self._inner.acquire()
             self._depth += 1
             return True
+        hook = _preempt_hook
+        if hook is not None:
+            hook("acquire", self.name)
         t0 = time.perf_counter_ns()
         got = self._inner.acquire(False)
         if not got:
@@ -220,6 +243,9 @@ class TrackedLock:
         self._owner = None
         self._depth = 0
         self._inner.release()
+        hook = _preempt_hook
+        if hook is not None:
+            hook("release", self.name)
 
     def locked(self) -> bool:
         if self._reentrant:
@@ -265,6 +291,16 @@ def lock_cycles() -> List[str]:
     each one a potential deadlock (opposite-order acquisition)."""
     with _REG:
         return list(_cycles)
+
+
+def _reset_edges_for_tests() -> None:
+    """Test hook: the edge graph is process-global; harness tests that
+    need a fresh graph reset it so later windows diff cleanly."""
+    with _REG:
+        _edges.clear()
+        _edge_list.clear()
+        _succ.clear()
+        _cycles.clear()
 
 
 def lock_contention_ns() -> int:

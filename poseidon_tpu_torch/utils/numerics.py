@@ -12,6 +12,11 @@ raises ``SaturationError`` naming the offending array and site:
 - ``certify_i32_total``: the host-boundary certificate that the int32
   sum of an array (the solver's total supply) cannot wrap the kernels'
   int32 flow sums.
+
+Failures raise ``SaturationError`` and are also counted as numeric
+anomalies on the process-wide ``check.ledger.numeric_anomaly_count``
+counter, so ``RoundMetrics.numeric_anomalies`` and the soak's budget-0
+gate see certificate trips too.
 """
 
 from __future__ import annotations
@@ -35,6 +40,17 @@ class SaturationError(AssertionError):
     happened or could no longer be ruled out).  Named by array/site."""
 
 
+def _note_anomaly(desc: str) -> None:
+    # Feed the process-wide anomaly counter; counting must never shadow
+    # the SaturationError it accompanies.
+    try:
+        from poseidon_tpu_torch.check.ledger import note_numeric_anomaly
+
+        note_numeric_anomaly(desc)
+    except Exception:  # noqa: BLE001 - counting must never shadow the raise
+        pass
+
+
 def _extrema(arr: np.ndarray) -> Tuple[int, int]:
     return int(arr.min()), int(arr.max())
 
@@ -54,6 +70,7 @@ def certify_i32(arr: np.ndarray, *, site: str,
             f"band [{I32_MIN + headroom}, {I32_MAX - headroom}] "
             f"(min={lo}, max={hi})"
         )
+        _note_anomaly(desc)
         raise SaturationError(desc)
     return arr
 
@@ -88,5 +105,6 @@ def certify_i32_total(arr: np.ndarray, *, site: str,
             f"certified band [{I32_MIN + headroom}, {I32_MAX - headroom}]"
             " — in-kernel int32 flow sums would wrap"
         )
+        _note_anomaly(desc)
         raise SaturationError(desc)
     return total

@@ -1,28 +1,38 @@
-"""Per-stage wall timers for the schedule round.
+"""Per-stage wall timers for the schedule round — a thin shim over the
+``poseidon_tpu_torch.obs.trace`` span tracer, as the reference's is.
 
-``stage(name)`` is a context manager that adds its wall time to a
-process-wide table; ``snapshot()`` reads the table and ``reset()``
-clears it.  The JAX package routes the same call sites through its span
-tracer; the port keeps only the aggregate table.
+The tracer owns accumulation (locked, thread-safe, shared with the span
+timeline), so ``snapshot()`` totals and an exported Perfetto trace are
+two views of the same records.  ``stage``/``snapshot``/``report``/
+``reset`` are gated by ``POSEIDON_STAGE_TIMERS=1`` with a zero-overhead
+disabled path; with ``POSEIDON_TRACE=1`` the same call sites also record
+full spans.  ``reset()`` clears the aggregate table only, leaving any
+recorded spans for export.
 
-A stage given a CUDA ``device`` also records a pair of CUDA events on the
-current stream while device timing is on (``set_device_timing``), so
-``device_snapshot()`` can report the device time between the stage's
-start and end beside its host (enqueue) time.  Off by default: two event
-records per stage cost a few microseconds of host time each.
+The port adds device timing: a stage given a CUDA ``device`` also
+records a pair of CUDA events on the current stream while device timing
+is on (``set_device_timing``), so ``device_snapshot()`` can report the
+device time between the stage's start and end beside its host (enqueue)
+time.  Off by default: two event records per stage cost a few
+microseconds of host time each.
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Tuple
 
+from poseidon_tpu_torch.obs import trace as _trace
+from poseidon_tpu_torch.utils.hatches import hatch_bool
+
 _LOCK = threading.Lock()
-_TOTALS: Dict[str, Tuple[float, int]] = {}
 _EVENTS: Dict[str, List[tuple]] = {}
 _DEVICE_TIMING = False
+
+
+def enabled() -> bool:
+    return hatch_bool("POSEIDON_STAGE_TIMERS")
 
 
 def set_device_timing(on: bool) -> None:
@@ -30,33 +40,34 @@ def set_device_timing(on: bool) -> None:
     _DEVICE_TIMING = bool(on)
 
 
-@contextmanager
-def stage(name: str, device=None) -> Iterator[None]:
-    ev = None
+def stage(name: str, device=None):
+    """Context manager timing one stage (a tracer span; no-op unless
+    stage timers or tracing are enabled), plus a CUDA event pair when
+    device timing is on and ``device`` is a CUDA device."""
     if _DEVICE_TIMING and device is not None and device.type == "cuda":
-        import torch
+        return _device_stage(name)
+    return _trace.span(name)
 
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        if ev is not None:
+
+@contextmanager
+def _device_stage(name: str) -> Iterator[None]:
+    import torch
+
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    with _trace.span(name):
+        try:
+            yield
+        finally:
             ev[1].record()
-        with _LOCK:
-            tot, n = _TOTALS.get(name, (0.0, 0))
-            _TOTALS[name] = (tot + dt, n + 1)
-            if ev is not None:
+            with _LOCK:
                 _EVENTS.setdefault(name, []).append(ev)
 
 
 def snapshot() -> Dict[str, Tuple[float, int]]:
-    """{stage: (total_seconds, calls)} accumulated since the last reset."""
-    with _LOCK:
-        return dict(_TOTALS)
+    """{stage: (total_seconds, calls)} accumulated since last reset."""
+    return _trace.snapshot_totals()
 
 
 def device_snapshot() -> Dict[str, Tuple[float, int]]:
@@ -75,6 +86,18 @@ def device_snapshot() -> Dict[str, Tuple[float, int]]:
 
 
 def reset() -> None:
+    _trace.reset_totals()
     with _LOCK:
-        _TOTALS.clear()
         _EVENTS.clear()
+
+
+def report() -> str:
+    rows = sorted(snapshot().items(), key=lambda kv: -kv[1][0])
+    width = max((len(k) for k, _ in rows), default=4)
+    lines = [f"{'stage'.ljust(width)}  total_s   calls  per_call_ms"]
+    for k, (tot, n) in rows:
+        lines.append(
+            f"{k.ljust(width)}  {tot:7.3f}  {n:6d}  "
+            f"{1000 * tot / max(n, 1):10.2f}"
+        )
+    return "\n".join(lines)

@@ -347,6 +347,28 @@ def test_pipeline_overlap_window():
     assert model.threads[1] == threading.current_thread().name
 
 
+def test_pipeline_authoritative_build_runs_outside_its_lock():
+    """The authoritative build joins the speculation under the pipeline's
+    lock and builds with it released, so no thread takes the cache's
+    locks inside it; the speculative build before it ran to its end."""
+    model = _SlowModel(dt=0.02)
+    pipe = CostPipeline(CostPlaneCache(model))
+    ecs, mt = _port_tables()
+    held = []
+    build = model.build
+
+    def spy(e, m):
+        held.append(pipe._lock.locked())
+        return build(e, m)
+
+    model.build = spy
+    pipe.speculate(1, ecs, mt)
+    pipe.build(1, ecs, mt)
+    assert len(model.threads) == 2
+    assert held[1] is False
+    pipe.drain()
+
+
 def test_pipeline_speculative_error_swallowed_authoritative_raises():
     model = _SlowModel(dt=0.0)
     pipe = CostPipeline(CostPlaneCache(model))

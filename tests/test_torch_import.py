@@ -43,6 +43,20 @@ assert {"poseidon_tpu_torch.ops.transport_coarse",
         "poseidon_tpu_torch.glue.metrics_agent",
         "poseidon_tpu_torch.glue.poseidon", "poseidon_tpu_torch.glue.main",
         "poseidon_tpu_torch.glue.kube_client",
+        "poseidon_tpu_torch.check", "poseidon_tpu_torch.check.ledger",
+        "poseidon_tpu_torch.replay", "poseidon_tpu_torch.replay.trace",
+        "poseidon_tpu_torch.replay.driver",
+        "poseidon_tpu_torch.replay.flight",
+        "poseidon_tpu_torch.chaos", "poseidon_tpu_torch.chaos.plan",
+        "poseidon_tpu_torch.chaos.inject",
+        "poseidon_tpu_torch.chaos.preempt",
+        "poseidon_tpu_torch.chaos.recorder",
+        "poseidon_tpu_torch.chaos.harness",
+        "poseidon_tpu_torch.chaos.soak",
+        "poseidon_tpu_torch.scenario", "poseidon_tpu_torch.scenario.plan",
+        "poseidon_tpu_torch.scenario.generate",
+        "poseidon_tpu_torch.scenario.score",
+        "poseidon_tpu_torch.scenario.drive",
         } <= set(names), names
 import chip_smoke
 bad = [m for m in sys.modules
@@ -102,3 +116,33 @@ def test_no_module_names_the_jax_package_in_an_import():
                 words = stripped.replace(",", " ").split()
                 assert "jax" not in words[1].split("."), (path, line)
                 assert words[1].split(".")[0] != "poseidon_tpu", (path, line)
+
+
+NUMPY_ONLY_PROBE = r"""
+import sys
+import poseidon_tpu_torch.chaos.plan
+import poseidon_tpu_torch.scenario.plan
+import poseidon_tpu_torch.scenario.generate
+import poseidon_tpu_torch.replay.trace
+from poseidon_tpu_torch.scenario import named_scenario, workload_events
+from poseidon_tpu_torch.replay import synthesize_trace
+
+plan = named_scenario("multi_tenant", machines=8, rounds=4, seed=0)
+assert workload_events(plan) and synthesize_trace(4, 4, seed=0)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("torch", "jax", "jaxlib", "poseidon_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_plan_and_trace_modules_import_no_torch():
+    """The fault plans, the scenario plans and generators, and the trace
+    generator are numpy-only, as in the reference: importing them (and
+    their packages) loads no torch."""
+    out = subprocess.run(
+        [sys.executable, "-c", NUMPY_ONLY_PROBE], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -428,6 +428,8 @@ def test_tiled_route_split_by_stage(monkeypatch):
     monkeypatch.setenv("POSEIDON_TILED", "1")
     monkeypatch.setenv("POSEIDON_FUSED", "0")
     monkeypatch.setenv("POSEIDON_HOST_CERT", "0")
+    # The stage timers are the tracer's aggregate mode, off by default.
+    monkeypatch.setenv("POSEIDON_STAGE_TIMERS", "1")
     monkeypatch.setattr(TF, "VMEM_ELEM_BUDGET", 1024)
     big, vec, _ = _packed(16, 1024, 2)
     E, M = 16, 1024

@@ -7,8 +7,11 @@ trace that both validators accept; the round-history ring and the
 """
 
 import json
+import subprocess
+import sys
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import pytest
 
@@ -71,12 +74,41 @@ def test_exposition_text_byte_equal():
 
 
 def test_observe_ledger_exports_the_lock_series_only():
+    """In a process without torch (the glue's), the lock series alone:
+    the compile and transfer series are read only once torch is
+    imported."""
+    code = (
+        "import sys\n"
+        "from poseidon_tpu_torch.obs import metrics as m\n"
+        "reg = m.Registry()\n"
+        "m.observe_ledger(registry=reg)\n"
+        "assert 'torch' not in sys.modules\n"
+        "print(reg.expose())\n"
+    )
+    text = subprocess.run(
+        [sys.executable, "-c", code], check=True, capture_output=True,
+        text=True, cwd=str(Path(__file__).resolve().parents[1]),
+    ).stdout
+    assert "poseidon_lock_contention_total" in text
+    assert "poseidon_lock_order_edges" in text
+    assert "poseidon_fresh_compiles_total" not in text
+    assert "poseidon_implicit_transfers_total" not in text
+
+
+def test_observe_ledger_exports_lock_compile_transfer_series():
+    """With torch imported, the lock series and the compile and transfer
+    ledgers' series, and never the reference's retrace series, which has
+    no torch event."""
+    import torch  # noqa: F401 - the ledgers' series need torch loaded
+
     reg = tmetrics.Registry()
     tmetrics.observe_ledger(registry=reg)
     text = reg.expose()
     assert "poseidon_lock_contention_total" in text
     assert "poseidon_lock_order_edges" in text
-    assert "poseidon_fresh_compiles_total" not in text
+    assert "poseidon_fresh_compiles_total" in text
+    assert "poseidon_implicit_transfers_total" in text
+    assert "poseidon_retraces_total" not in text
 
 
 def _record_spans(T, monkeypatch):
