@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU::
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build: the four CUDA sources built with ``nvcc`` from ``ops/csrc``
+2. build: the five CUDA sources built with ``nvcc`` from ``ops/csrc``
    (one process each, all started together), their ``-Xptxas -v``
    register and spill reports, B1's shared-memory size checked against
    its Python mirror, and the native graph core built with ``g++``;
@@ -35,6 +35,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    once; member updates and a comparison sort's count); and the whole
    coarse-to-fine program (B5) on a seeded [128, 10240] wave instance
    against the plain pipeline forced, every field of the solution equal;
+   the chained wave's greedy-rows kernel (B7's scan) against its plain
+   loop, bit-equal, on seeded [128, 256] and [32, 128] instances, one with
+   cost ties and one where the capacity runs out partway through rows,
+   timed by device time beside its bound; and the whole chained two-band
+   program (B7) on a seeded [128 + 32, 10240] wave against itself with
+   the plain versions forced: both bands' flows, the stat vector with the
+   committed deltas, band 2's cost plane and both certified solutions
+   bit-equal;
 4. main path: the port's gRPC server answers ``Schedule()`` for a
    10,000-machine / 100,000-pod cluster (one fresh wave, three churn
    rounds) with the planner tiers, the convergence telemetry, the fused
@@ -64,10 +72,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    disaggregation kernel wherever the fused program ran), and every
    kernel in some path; B2's route on the wave must run the
    global-update kernel with no host read and at most 3 CUDA kernels per
-   iteration, and its split by stage is printed;
+   iteration, and its split by stage is printed; then the chained drive
+   (``POSEIDON_CHAINED=1``, a server restored from the same checkpoint):
+   the wave must run the chained program in one device call, certify,
+   place every pod and give the deltas of its plain-forced run byte for
+   byte (the greedy rows' plain loop swapped in, as the scan's is); its
+   objective is printed beside the per-band wave's, one churn round runs
+   on its warm frames, and the server's device-memory gauges (in use and
+   limit) must read nonzero after the wave;
 5. the kernels again at the main path's own wave solves (the captured
-   operands of its widest B2 solve and of its first disaggregation),
-   against their plain versions, after the path's launches were read;
+   operands of its widest B2 solve, of its first disaggregation and of
+   the chained wave's band-2 greedy rows), against their plain versions,
+   after the path's launches were read; then one ``POSEIDON_JAX_PROFILE``
+   window around a 200-machine round on the card must write its
+   torch.profiler trace under build/chip_smoke/profile;
 6. the device-resident operand cache: a seeded [128, 10240] instance
    through ``solve_transport`` (cold, five warm re-solves after 1% of the
    columns' capacities and costs change, one past the cache's wholesale
@@ -992,11 +1010,12 @@ def _swap(owner, name, value) -> None:
 
 
 def _set_plain_pipeline(plain: bool) -> None:
-    """The plain ladders and the plain disaggregation scan forced, or
-    every route at its default.  The ladders have their hatches; the scan
-    has none, so the program's binding of the kernel's wrapper is swapped
-    for the plain scan (looked up at each call, so a spy on it sees the
-    call)."""
+    """The plain ladders, the plain disaggregation scan and the plain
+    greedy rows forced, or every route at its default.  The ladders have
+    their hatches; the scan and the greedy rows have none, so the
+    programs' bindings of the kernels' wrappers are swapped for the plain
+    versions (looked up at each call, so a spy on them sees the call)."""
+    from poseidon_tpu_torch.ops import transport_chained as TCH
     from poseidon_tpu_torch.ops import transport_coarse as TC
 
     for k in ("POSEIDON_FUSED", "POSEIDON_TILED"):
@@ -1006,6 +1025,7 @@ def _set_plain_pipeline(plain: bool) -> None:
         return TC.disaggregate_plain(*a, **k)
 
     _swap(TC, "coarse_disaggregate", plain_scan if plain else None)
+    _swap(TCH, "greedy_rows", TCH.greedy_rows_plain if plain else None)
 
 
 def _set_native(on: bool) -> None:
@@ -1068,6 +1088,395 @@ def check_coarse_program() -> dict:
             "iterations": k["sol"].iterations, "routes": k["routes"]}
 
 
+# ----------------------------------------------------------- B7 (chained)
+
+# int32 operations per [E, K] cell of the greedy rows, counted from
+# csrc/greedy_seed.cu (the admissibility test, the offer's min, the take's
+# subtract, min and max, the capacity update), plus a block scan's
+# ceil(log2 K) adds per cell.
+OPS_PER_CELL_GREEDY = 6
+
+
+def _greedy_case(E, K, seed, *, ties=False, tight=False):
+    """A band-2 coarse instance for the greedy rows at [E, K]: 10% of
+    the cells inadmissible; ``ties`` draws the costs from four values;
+    ``tight`` makes the column capacity run out partway through rows."""
+    from poseidon_tpu_torch.ops import transport as T
+
+    rng = np.random.default_rng(seed)
+    C = rng.integers(0, 4 if ties else 900, size=(E, K)).astype(np.int32)
+    C[rng.random((E, K)) < 0.1] = T.INF_COST
+    return dict(C=C, arc=rng.integers(0, 40, size=(E, K)).astype(np.int32),
+                cap=rng.integers(0, 4 if tight else 200,
+                                 size=K).astype(np.int32),
+                supply=rng.integers(0, 60, size=E).astype(np.int32))
+
+
+GREEDY_OPERANDS = ("C", "arc", "cap", "supply")
+
+
+def _greedy_args(d):
+    """The wrapper's operands on the card, with the row order computed
+    as the program computes it (a stable argsort, outside the kernel)."""
+    from poseidon_tpu_torch.ops import transport as T
+
+    t = [torch.from_numpy(np.ascontiguousarray(d[k])).to(DEVICE)
+         for k in GREEDY_OPERANDS]
+    order = torch.argsort(torch.where(t[0] < T.INF_COST, t[0], T.INF_COST),
+                          dim=1, stable=True).to(torch.int32)
+    return (*t, order)
+
+
+def greedy_cases():
+    """Seeded [128, 256] and [32, 128] instances, one with cost ties and
+    one where the capacity runs out partway through rows."""
+    return [
+        ("seeded", _greedy_case(128, 256, SEED)),
+        ("seeded", _greedy_case(32, 128, SEED + 1)),
+        ("ties", _greedy_case(32, 256, SEED + 2, ties=True)),
+        ("capacity out mid-row", _greedy_case(32, 256, SEED + 3,
+                                              tight=True)),
+    ]
+
+
+def check_greedy_seed(cases) -> list:
+    """The greedy-rows kernel against the plain row loop on the card, F0
+    bit-equal, timed by device time (``_time_device``) beside the plain
+    loop and the bound: C, the order and F0 read or written once per
+    cell, the arc capacities of the admissible cells, the capacity and
+    the supply; ``OPS_PER_CELL_GREEDY`` plus a scan's ceil(log2 K) adds
+    per cell."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops import transport_chained as TCH
+
+    rows = []
+    for label, d in cases:
+        args = _greedy_args(d)
+        a = TCH.greedy_rows(*args)
+        b = TCH.greedy_rows_plain(*args)
+        err = _max_err([a.cpu().numpy()], [b.cpu().numpy()])
+        ms, host_ms = _time_device(lambda: TCH.greedy_rows(*args), 20)
+        plain_ms = _time_cuda(lambda: TCH.greedy_rows_plain(*args), 1)
+        E, K = d["C"].shape
+        adm = int((d["C"] < T.INF_COST).sum())
+        nbytes = 4 * (3 * E * K + adm + K + E)
+        ops = E * K * (OPS_PER_CELL_GREEDY + max(K - 1, 0).bit_length())
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        F0 = a.cpu().numpy()
+        short = int(((F0.sum(1) > 0) & (F0.sum(1) < d["supply"])).sum())
+        rows.append(dict(shape=[E, K], label=label, err=err, ms=ms,
+                         host_ms=host_ms, plain_ms=plain_ms, bytes=nbytes,
+                         ops=ops))
+        log(f"  greedy rows {label} [{E}, {K}]: max_abs_err {err}, "
+            f"{int(F0.sum())} units placed, {short} rows cut short by the "
+            f"capacity; kernel {ms:.4f} ms (host {host_ms:.4f} ms a call), "
+            f"plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+            f"({ms / bound:.1f}x)")
+        if err != 0:
+            fail(f"the greedy-rows kernel differs from the plain loop at "
+                 f"{label}")
+        if label == "capacity out mid-row" and not short:
+            fail("the capacity-bound greedy case cut no row short")
+    return rows
+
+
+def _chained_instance():
+    """A seeded two-band wave at [100 + 20, 10000] (padded [128 + 32,
+    10240]): band 1's planes and band 2's ``extract_band_operands``."""
+    from poseidon_tpu_torch.costmodel.base import ECTable, MachineTable
+    from poseidon_tpu_torch.costmodel.cpu_mem import CpuMemCostModel
+    from poseidon_tpu_torch.costmodel.device_build import (
+        extract_band_operands,
+    )
+    from poseidon_tpu_torch.ops import transport as T
+
+    rng = np.random.default_rng(SEED + 8)
+    E1, E2, M = 100, 20, 10_000
+    cpu_cap = rng.choice([16000, 32000, 64000], size=M).astype(np.int64)
+    ram_cap = cpu_cap << 12
+    mt = MachineTable(
+        uuids=[f"c{m}" for m in range(M)], cpu_capacity=cpu_cap,
+        ram_capacity=ram_cap,
+        cpu_used=(cpu_cap * rng.random(M) * 0.3).astype(np.int64),
+        ram_used=(ram_cap * rng.random(M) * 0.3).astype(np.int64),
+        cpu_util=rng.random(M).astype(np.float32),
+        mem_util=rng.random(M).astype(np.float32),
+        slots_free=np.full(M, 8, dtype=np.int32),
+        labels=[{} for _ in range(M)],
+    )
+    ec2 = ECTable(
+        ec_ids=np.arange(E2, dtype=np.uint64),
+        cpu_request=rng.integers(100, 600, size=E2).astype(np.int64),
+        ram_request=rng.integers(1 << 18, 1 << 20, size=E2).astype(np.int64),
+        supply=rng.integers(500, 2000, size=E2).astype(np.int32),
+        priority=np.zeros(E2, dtype=np.int32),
+        task_type=np.zeros(E2, dtype=np.int32),
+        max_wait_rounds=np.zeros(E2, dtype=np.int32),
+        selectors=[() for _ in range(E2)],
+    )
+    model = CpuMemCostModel()
+    # Load-shaped band-1 costs (a row term plus a machine term), as a
+    # cost model gives them.
+    costs1 = (rng.integers(50, 800, size=E1)[:, None]
+              + rng.integers(0, 400, size=M)[None, :]).astype(np.int32)
+    costs1[rng.random((E1, M)) < 0.05] = T.INF_COST
+    return dict(
+        costs1=costs1,
+        supply1=rng.integers(100, 300, size=E1).astype(np.int32),
+        col_cap1=rng.integers(0, 4, size=M).astype(np.int32),
+        unsched1=np.full(E1, 2000, dtype=np.int32),
+        arc_cap1=rng.integers(1, 3, size=(E1, M)).astype(np.int32),
+        req1_cpu=rng.integers(4000, 9000, size=E1).astype(np.int32),
+        req1_ram=rng.integers(1 << 21, 1 << 22, size=E1).astype(np.int32),
+        ops2=extract_band_operands(ec2, mt, model), supply2=ec2.supply,
+        max_cost_hint=model.max_cost(),
+    )
+
+
+def _ladder_bounds(bounds: list):
+    """A spy for the programs' ladders (``transport_coarse.solve_route``,
+    which ``coarse_to_fine_band`` calls): appends the bound of each
+    ladder's launches, from its shape, iterations, sweeps and global
+    updates, counted as ``check_fused``, ``check_tiled`` and
+    ``check_global_update`` count one launch (no ring).  It reads each
+    ladder's stats, so it runs apart from the timed runs."""
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    real = TC.solve_route
+
+    def spy(impl, *args, **kw):
+        gu0 = _kernels.LAUNCHES["global_update"]
+        out = real(impl, *args, **kw)
+        E, M = args[0].shape
+        iters, bf = (int(x) for x in out[3][:2].cpu())
+        if impl == "fused":
+            nbytes = 4 * (4 * E * M + 6 * E + 5 * M + 15 + NUM_PHASES)
+            ops = E * M * (OPS_PER_CELL_ITER * iters + OPS_PER_CELL_BF * bf
+                           + OPS_PER_CELL_PHASE * NUM_PHASES)
+        else:
+            gu = _kernels.LAUNCHES["global_update"] - gu0
+            nbytes = 4 * (4 * E * M * iters
+                          + (3 * E * M + 6 * E + 5 * M + 5) * gu)
+            ops = E * M * (OPS_PER_CELL_ITER * iters
+                           + OPS_PER_CELL_GU_LENGTHS * gu
+                           + OPS_PER_CELL_GU_SWEEP * bf)
+        bounds.append(max(nbytes / HBM_BYTES_PER_S,
+                          ops / INT32_OPS_PER_S) * 1e3)
+        return out
+
+    return spy
+
+
+def check_chained_program() -> dict:
+    """The whole chained program (B7) on the card against itself with the
+    plain versions forced (plain ladders, plain scan, plain greedy rows)
+    on a seeded [128 + 32, 10240] wave: both bands' flows, the stat
+    vector (fallbacks, prices, iterations, sweeps, convergence bits,
+    phase iterations and the three delta vectors), band 2's cost plane
+    and every field of both bands' certified solutions bit-equal.  A
+    third run with the kernels sums its ladders' launch bounds
+    (``_ladder_bounds``) and must give the same flows."""
+    from poseidon_tpu_torch.ops import _kernels
+    from poseidon_tpu_torch.ops import transport_chained as TCH
+    from poseidon_tpu_torch.ops import transport_coarse as TC
+
+    inst = _chained_instance()
+    band1 = {k: inst[k] for k in ("costs1", "supply1", "col_cap1",
+                                  "unsched1", "arc_cap1")}
+    out = {}
+    bounds = []
+    for mode in ("kernels", "plain", "bound"):
+        _set_plain_pipeline(mode == "plain")
+        _kernels.reset_launches()
+        if mode == "bound":
+            _swap(TC, "solve_route", _ladder_bounds(bounds))
+        t0 = time.perf_counter()
+        w = TCH.pack_wave(*band1.values(), inst["req1_cpu"],
+                          inst["req1_ram"], inst["ops2"], inst["supply2"],
+                          max_cost_hint=inst["max_cost_hint"],
+                          device=DEVICE)
+        if w is None:
+            fail(f"the chained program declined the seeded wave ({mode})")
+        flows, small, costsB = TCH.run_program(w, DEVICE)
+        E2, M = inst["ops2"]["adm0"].shape
+        costs2 = costsB.cpu().numpy()[:E2, :M]
+        sols = TCH.finish_wave(w, flows, small, costs2, **band1,
+                               ops2=inst["ops2"], supply2=inst["supply2"])
+        secs = time.perf_counter() - t0
+        if sols is None:
+            fail(f"the chained program did not certify the seeded wave "
+                 f"({mode})")
+        out[mode] = dict(flows=flows, small=small, costs2=costs2, sols=sols,
+                         secs=secs, launches=dict(_kernels.LAUNCHES),
+                         shape=[w.e1_pad, w.e2_pad, w.M2])
+    _swap(TC, "solve_route", None)
+    _set_plain_pipeline(False)
+    k, p = out["kernels"], out["plain"]
+    err = _max_err([k["flows"], k["small"], k["costs2"]],
+                   [p["flows"], p["small"], p["costs2"]])
+    for a, b in zip(k["sols"], p["sols"]):
+        err = max(err, _max_err([a.flows, a.unsched, a.prices],
+                                [b.flows, b.unsched, b.prices]))
+    diff = [f for f in SOLUTION_FIELDS for a, b in zip(k["sols"], p["sols"])
+            if getattr(a, f) != getattr(b, f)]
+    s1, s2 = k["sols"]
+    bound_ms = sum(bounds)
+    log(f"  B7 [{k['shape'][0]} + {k['shape'][1]}, {k['shape'][2]}]: "
+        f"kernels {k['secs']:.3f} s (launches {k['launches']}), plain "
+        f"{p['secs']:.3f} s, bound {bound_ms:.3f} ms (its four ladders' "
+        f"launches: {', '.join(f'{b:.3f}' for b in bounds)}); iterations "
+        f"{s1.iterations} + {s2.iterations}, "
+        f"sweeps {s1.bf_sweeps} + {s2.bf_sweeps}, objective "
+        f"{s1.objective + s2.objective}; max_abs_err {err} (flows, stat "
+        f"vector with the deltas, band 2's costs, both solutions), fields "
+        f"differing {diff}")
+    if err or diff or _max_err([k["flows"]], [out["bound"]["flows"]]):
+        fail("the chained program differs from its plain-forced run")
+    if not (k["launches"]["greedy_seed"] and
+            k["launches"]["coarse_disaggregate"]) or \
+            any(p["launches"].values()):
+        fail(f"launches: kernels {k['launches']}, plain {p['launches']}")
+    return {"kernels_s": k["secs"], "plain_s": p["secs"],
+            "bound_ms": bound_ms, "shape": k["shape"],
+            "iterations": [s1.iterations, s2.iterations]}
+
+
+def _gauges() -> dict:
+    """The device-memory gauges the server exported (the default
+    registry's exposition), by name."""
+    from poseidon_tpu_torch.obs import metrics as obs_metrics
+
+    out = {}
+    for line in obs_metrics.default_registry().expose().splitlines():
+        name = line.split("{")[0].split(" ")[0]
+        if name.startswith("poseidon_device_") or \
+                name == "poseidon_live_buffers":
+            out[line.rsplit(" ", 1)[0]] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def chained_phase(ckpt, tasks, per_band_wave) -> tuple:
+    """The chained drive: a server restored from the main path's
+    checkpoint with ``POSEIDON_CHAINED=1``, the fresh wave and one churn
+    round with the kernels, then the wave with the plain versions forced
+    (the greedy rows' plain loop swapped in; it captures the wave's
+    band-2 coarse instance for ``check_greedy_seed``).  The waves must
+    run the chained program in one device call, certify, place every pod
+    and give byte-identical deltas; the device-memory gauges must read
+    after the wave.  Returns ``(rounds, captured instance, info)``."""
+    from poseidon_tpu_torch.ops import transport_chained as TCH
+
+    _set_env("POSEIDON_CHAINED", "1")
+    log("chained wave (POSEIDON_CHAINED=1): wave and one churn round, "
+        "kernels")
+    kern = drive("chained", ckpt, tasks, 1, precompile=False)
+    gauges = _gauges()
+    _set_plain_pipeline(True)
+    captured = {}
+
+    def record(*args):
+        if not captured:
+            captured.update(zip(GREEDY_OPERANDS + ("order",),
+                                (t.cpu().numpy() for t in args)))
+        return TCH.greedy_rows_plain(*args)
+
+    _swap(TCH, "greedy_rows", record)
+    log("chained wave: wave, plain versions forced")
+    plain = drive("chained-plain", ckpt, tasks, 0, precompile=False)
+    _set_plain_pipeline(False)
+    _set_env("POSEIDON_CHAINED", None)
+    _check_path("chained", kern)
+    wave = kern[0]
+    if wave["chained"] != [TCH.RAN]:
+        fail(f"the chained wave did not run the chained program: "
+             f"{wave['chained'] or 'the planner gate declined'}")
+    if plain[0]["chained"] != [TCH.RAN]:
+        fail(f"the plain-forced chained wave: {plain[0]['chained']}")
+    if wave["device_calls"] != 1:
+        fail(f"the chained wave made {wave['device_calls']} device calls")
+    if wave["placed"] != TASKS or wave["unscheduled"]:
+        fail(f"the chained wave placed {wave['placed']} of {TASKS}")
+    _same_rounds("chained", kern[:1], plain,
+                 ("placed", "unscheduled", "objective", "iterations",
+                  "bf_sweeps", "device_calls", "chained"))
+    if any(any(r["launches"].values()) for r in plain):
+        fail("the plain-forced chained wave launched a kernel")
+    if not captured:
+        fail("the chained wave captured no greedy-rows instance")
+    in_use = [v for k, v in gauges.items()
+              if k.startswith("poseidon_device_bytes_in_use")]
+    limit = [v for k, v in gauges.items()
+             if k.startswith("poseidon_device_bytes_limit")]
+    if not (in_use and limit and all(in_use) and all(limit)):
+        fail(f"the device-memory gauges did not read: {gauges}")
+    log(f"  [chained] wave in one device call, deltas byte-identical to "
+        f"the plain-forced run; objective {wave['objective']} (the "
+        f"per-band wave's {per_band_wave['objective']}), wall "
+        f"{wave['wall_s']:.3f} s (per-band {per_band_wave['wall_s']:.3f} "
+        f"s); churn: {kern[1]['chained'] or 'no chain attempt'}; "
+        f"device-memory gauges {json.dumps(gauges)}")
+    info = {"wave_s": wave["wall_s"], "plain_wave_s": plain[0]["wall_s"],
+            "objective": wave["objective"],
+            "per_band_objective": per_band_wave["objective"],
+            "per_band_wave_s": per_band_wave["wall_s"],
+            "iterations": wave["iterations"], "host_reads":
+            wave["host_reads"], "gauges": gauges}
+    return kern, captured, info
+
+
+def profile_phase() -> dict:
+    """One ``POSEIDON_JAX_PROFILE`` window on the card: a planner round
+    on a small contended cluster (200 machines, the host certificate off
+    so that the solve runs on the card) writes a torch.profiler trace
+    under build/chip_smoke/profile; the trace must exist, and its CUDA
+    kernel events are counted."""
+    import shutil
+
+    from poseidon_tpu_torch.costmodel import get_cost_model
+    from poseidon_tpu_torch.graph.instance import RoundPlanner
+    from poseidon_tpu_torch.graph.state import ClusterState, MachineInfo
+    from poseidon_tpu_torch.graph.state import TaskInfo
+    from poseidon_tpu_torch.obs import profile as obs_profile
+    from poseidon_tpu_torch.utils.ids import generate_uuid, task_uid
+
+    root = HARNESS_OUT / "profile"
+    shutil.rmtree(root, ignore_errors=True)
+    st = ClusterState()
+    for i in range(200):
+        cpu, ram = MACHINE_SHAPES[i % 3]
+        st.node_added(MachineInfo(uuid=generate_uuid(f"pf-m{i}"),
+                                  cpu_capacity=cpu, ram_capacity=ram,
+                                  task_slots=8))
+    rng = np.random.default_rng(SEED + 9)
+    for i in range(2000):
+        e = int(rng.integers(0, 20))
+        st.task_submitted(TaskInfo(uid=task_uid("pf", i), job_id=f"pf-{e}",
+                                   cpu_request=200 + 150 * e,
+                                   ram_request=(1 << 18) * (1 + e % 4)))
+    _set_env("POSEIDON_JAX_PROFILE", str(root))
+    _set_env("POSEIDON_HOST_CERT", "0")
+    t0 = time.perf_counter()
+    _, m = RoundPlanner(st, get_cost_model("cpu_mem"),
+                        device=DEVICE).schedule_round()
+    secs = time.perf_counter() - t0
+    _set_env("POSEIDON_JAX_PROFILE", None)
+    _set_env("POSEIDON_HOST_CERT", None)
+    trace = root / "round_000000" / obs_profile.TRACE_FILE
+    if not trace.exists():
+        fail(f"the profile window wrote no trace at {trace}")
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"  profile window: {trace.relative_to(HARNESS_OUT.parent.parent)} "
+        f"({trace.stat().st_size} bytes, {len(events)} events, {kernels} "
+        f"CUDA kernel events); round {secs:.3f} s, {m.device_calls} device "
+        f"solves, placed {m.placed}")
+    if m.device_calls < 1:
+        fail("the profiled round made no device solve")
+    return {"trace_bytes": trace.stat().st_size, "events": len(events),
+            "cuda_kernel_events": kernels, "round_s": secs}
+
+
 def kernel_phase():
     fused_cases, tiled_cases, gu_cases = kernel_cases()
     log("kernels: B1 fused ladder vs plain ladder")
@@ -1085,7 +1494,11 @@ def kernel_phase():
     disagg = check_coarse_disaggregate(disagg_cases())
     log("kernels: the coarse-to-fine program (B5) vs the plain pipeline")
     program = check_coarse_program()
-    return fused, tiled, gu, disagg, program, l2_rate
+    log("kernels: the chained wave's greedy rows (B7) vs the plain loop")
+    greedy = check_greedy_seed(greedy_cases())
+    log("kernels: the chained two-band program (B7) vs the plain versions")
+    chained = check_chained_program()
+    return fused, tiled, gu, disagg, greedy, program, chained, l2_rate
 
 
 # --------------------------------------------------------------- phase 4
@@ -1444,6 +1857,7 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True,
             watch.take()
             gcc.take()
             reads0 = T.host_read_count()
+            chained0 = Counter(T._Telemetry.chained_outcomes)
             routes0 = dict(T._Telemetry.routes)
             split0 = (Counter(T._Telemetry.stage_reads),
                       Counter(T._Telemetry.route_iters),
@@ -1472,6 +1886,8 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True,
                 launches=dict(_kernels.LAUNCHES),
                 host_reads=T.host_read_count() - reads0,
                 seam_reads=seam_reads, coarse=coarse, gc=gc_pauses,
+                chained=sorted((T._Telemetry.chained_outcomes
+                                - chained0).elements()),
                 routes={f"{k[0]}[{k[1]}, {k[2]}]": n - routes0.get(k, 0)
                         for k, n in sorted(T._Telemetry.routes.items())
                         if n > routes0.get(k, 0)},
@@ -1489,6 +1905,8 @@ def drive(label, ckpt, tasks, churn_rounds, capture=None, native=True,
                 f"{rec['launches']}, host reads {rec['host_reads']} (seam "
                 f"reads {seam_reads}), gap {m.gap_bound}, solves by route "
                 f"[E_pad, M_pad] {rec['routes']}")
+            if rec["chained"]:
+                log(f"    chained wave: {rec['chained']}")
             log(f"    coarse start by band: {coarse or 'none attempted'}; "
                 f"round.view_build {stages.get('round.view_build', 0.0):.4f}"
                 f" s, round.assign {stages.get('round.assign', 0.0):.4f} s;"
@@ -1534,7 +1952,7 @@ def _set_tiers(on: bool) -> None:
 
 
 KERNEL_NAMES = ("fused_ladder", "tiled_iteration", "global_update",
-                "coarse_disaggregate")
+                "coarse_disaggregate", "greedy_seed")
 # The kernels a solve route launches.
 ROUTE_KERNELS = {"fused": ("fused_ladder",),
                  "tiled": ("tiled_iteration", "global_update")}
@@ -1564,6 +1982,12 @@ def _check_path(name, rounds) -> None:
                 r["launches"]["coarse_disaggregate"] == 0:
             fail(f"[{name}] {r['kind']}: the fused coarse program ran but "
                  "the disaggregation kernel was never launched")
+        if "ran" in r.get("chained", ()) and not (
+                r["launches"]["greedy_seed"]
+                and r["launches"]["coarse_disaggregate"]):
+            fail(f"[{name}] {r['kind']}: the chained program ran but the "
+                 f"greedy or the disaggregation kernel was never launched: "
+                 f"{r['launches']}")
 
 
 def _counts(rec, counts):
@@ -1601,7 +2025,9 @@ def main_path(capture):
     the tiers off, with the kernels.  Where the paths' waves never
     reached the per-iteration kernel, a contended wave stands in for it.
     ``capture`` receives the main path's wave solves (see ``drive``),
-    taken in the plain run, whose operands are the same bits."""
+    taken in the plain run, whose operands are the same bits, and the
+    chained drive's band-2 greedy instance (``chained_phase``, after the
+    dense path), whose numbers come back as the fourth result."""
     from poseidon_tpu_torch.utils import stagetimer
 
     nodes, tasks = _population()
@@ -1714,6 +2140,9 @@ def main_path(capture):
         fail("the tiers-on and tiers-off waves differ in objective or "
              "placed count")
 
+    results["chained"], capture["greedy"], chained = chained_phase(
+        ckpt, tasks, kern[0])
+
     if not any(r["launches"]["tiled_iteration"]
                for rs in results.values() for r in rs):
         log("  no wave reached the per-iteration kernel; adding a "
@@ -1750,7 +2179,7 @@ def main_path(capture):
         fail(f"the wave's global updates made {gu_reads} host reads")
     if per_iter is not None and per_iter > 3:
         fail(f"B2 launched {per_iter} CUDA kernels per iteration")
-    return results, launches, ring_cost
+    return results, launches, ring_cost, chained
 
 
 # ------------------------------------------------------ resident phase
@@ -2679,7 +3108,7 @@ def main_path_cases(capture):
     return best
 
 
-def kernels_record(fused, tiled, gu, disagg, launches):
+def kernels_record(fused, tiled, gu, disagg, greedy, launches):
     """The kernels line.  ``launches`` is ``{path: {kernel: n}}``, each
     path's count read just after its own drive; a row's ``launches`` is
     their sum over the paths, ``launches_by_path`` the split.  The ladder
@@ -2741,6 +3170,11 @@ def kernels_record(fused, tiled, gu, disagg, launches):
             "block per column group: producer warps sort the active rows "
             "into a shared-memory ring, one warp walks the row chain)",
             disagg, "coarse_disaggregate",
+            ring=False),
+        row("greedy_seed", "poseidon_tpu_torch/ops/csrc/greedy_seed.cu",
+            "poseidon_tpu/ops/transport_chained.py:111",
+            "one kernel launch: the chained wave's band-2 greedy rows (one "
+            "block, a block-wide scan per row)", greedy, "greedy_seed",
             ring=False),
     ]}
 
@@ -2918,9 +3352,15 @@ def main(argv) -> int:
         harness = harness_phases(argv[1].split(","))
         log("harness phases: " + json.dumps(_harness_report(info, harness)))
         return 0
-    fused, tiled, gu, disagg, program, l2_rate = kernel_phase()
+    (fused, tiled, gu, disagg, greedy, program, chained_program,
+     l2_rate) = kernel_phase()
     capture = {}
-    results, launches, ring_cost = main_path(capture)
+    results, launches, ring_cost, chained = main_path(capture)
+    log("kernels: the greedy rows at the chained wave's band-2 instance")
+    greedy = check_greedy_seed([("chained wave band 2",
+                                 capture.pop("greedy"))]) + greedy
+    log("profile window: POSEIDON_JAX_PROFILE around one round's solve")
+    profile = profile_phase()
     # The kernels at the main path's own wave shapes (after the path's
     # launches were read, so these comparisons are not counted).
     cases = main_path_cases(capture)
@@ -2964,7 +3404,9 @@ def main(argv) -> int:
     log("ring cost, ms or s with the ring on / off: " + json.dumps(cost))
     # The slice's stages by drive: the wave's device solve, view build,
     # assignment and wall, and the churn rounds' view build and wall.
-    summary = {"card": info["smi"], "b5_program": program}
+    summary = {"card": info["smi"], "b5_program": program,
+               "b7_program": chained_program, "chained_wave": chained,
+               "profile": profile}
     for name, rs in results.items():
         summary[name] = [
             {"kind": r["kind"], "wall_s": r["wall_s"],
@@ -2999,7 +3441,8 @@ def main(argv) -> int:
          "restored_wave_s": glue["restored"][0]["wall_s"]}))
     log("harness phases: " + json.dumps(_harness_report(info, harness)))
     print(info["smi"], flush=True)
-    print(json.dumps(kernels_record(fused, tiled, gu, disagg, launches)),
+    print(json.dumps(kernels_record(fused, tiled, gu, disagg, greedy,
+                                    launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],

@@ -23,10 +23,11 @@ pruned-plane solve with its excluded-column certificate cache
 (graph/pipeline.py) and the overlapped EC->task assignment, with the
 one-program coarse start and the streaming engine's branches
 (``POSEIDON_STREAMING``: the admission cut, the plane cache's ingest
-hints and the cross-round speculative cost build).  The worker threads
-of the pipeline and the assignment do host numpy only; every device
-solve runs on the calling thread.  Left out: the sharded tier, the
-chained wave and the ``ssp`` solver.
+hints and the cross-round speculative cost build), the opt-in chained
+two-band wave (``POSEIDON_CHAINED``, ops/transport_chained.py) and the
+host ``ssp`` solver.  The worker threads of the pipeline and the
+assignment do host numpy only; every device solve runs on the calling
+thread.  Left out: the sharded tier.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from poseidon_tpu_torch.costmodel.delta import CostPlaneCache
 from poseidon_tpu_torch.graph.pipeline import CostPipeline, pipelining_enabled
 from poseidon_tpu_torch.graph.state import ClusterState
 from poseidon_tpu_torch.obs import history as _history
+from poseidon_tpu_torch.obs import profile as _profile
 from poseidon_tpu_torch.obs import trace as _trace
 from poseidon_tpu_torch.ops import transport_pruned as tp
 from poseidon_tpu_torch.ops.transport import (
@@ -395,12 +397,19 @@ class RoundPlanner:
         gang_scheduling: bool = True,
         pod_affinity: bool = True,
         global_update_every: int = 4,
+        flow_solver: str = "auction",
         device=None,
     ) -> None:
         if global_update_every < 1:
             raise ValueError(
                 f"global_update_every must be >= 1, got {global_update_every}"
             )
+        # flow_solver: "auction" = the device cost-scaling push-relabel
+        # ladder; "ssp" = the host network-simplex verification solver
+        # (exact, slow, no device; solver/oracle.py).
+        if flow_solver not in ("auction", "ssp"):
+            raise ValueError(f"unknown flow_solver {flow_solver!r}")
+        self.flow_solver = flow_solver
         self.state = state
         self.cost_model = cost_model
         self.preemption = preemption
@@ -534,9 +543,23 @@ class RoundPlanner:
 
     def _dispatch_solve(self, costs, supply, capacity, unsched_cost,
                         prices=None, **kw):
-        """The one solver dispatch: the selective (column-reduced) wrapper,
-        which falls through to the full solve when the reduction would not
-        shrink the instance or does not certify."""
+        """The one solver dispatch of a band: the host ssp oracle, or the
+        selective (column-reduced) wrapper, which falls through to the
+        full solve when the reduction would not shrink the instance or
+        does not certify."""
+        if self.flow_solver == "ssp":
+            from poseidon_tpu_torch.solver.oracle import transport_solve
+
+            obj, flows, unsched = transport_solve(
+                costs, supply, capacity, unsched_cost,
+                arc_capacity=kw.get("arc_capacity"),
+            )
+            E_b, M_b = np.asarray(costs).shape
+            return TransportSolution(
+                flows=flows, unsched=unsched,
+                prices=np.zeros(E_b + M_b + 1, dtype=np.int32),
+                objective=obj, gap_bound=0.0, iterations=0,
+            )
         kw.setdefault("global_update_every", self.global_update_every)
         return solve_transport_selective(
             costs, supply, capacity, unsched_cost, prices,
@@ -569,6 +592,8 @@ class RoundPlanner:
             coarse_group_count,
             solve_transport,
         )
+        if self.flow_solver == "ssp":
+            return 0  # the host oracle has nothing to run ahead
         m_now = len(self.state.machines)
         m_buckets = sorted({
             bucket_size(m) for m in (m_now, max_machines) if m > 0
@@ -832,8 +857,35 @@ class RoundPlanner:
             else:
                 deferred.append(work)
 
+        def on_band_reset():
+            # A speculative chunk (the chained path's early band-1
+            # assignment) whose round DECLINED must be discarded before
+            # the per-band path re-assigns the same ECs — duplicate
+            # chunks would double every delta.  Metrics counted by the
+            # discarded chunk are rolled back by re-zeroing the fields
+            # _assign_ecs accumulates.
+            for f in futures:
+                try:
+                    f.result()
+                except Exception:  # noqa: BLE001
+                    pass
+            futures.clear()
+            deferred.clear()
+            chunks.clear()
+            metrics.placed = metrics.preempted = metrics.migrated = 0
+            metrics.unscheduled = 0
+
         try:
-            flows = self._solve_banded(ecs, mt, metrics, on_band=on_band)
+            # Hatch-gated torch.profiler capture around the solve window
+            # (POSEIDON_JAX_PROFILE=<dir>); the artifact path lands on
+            # the round span.
+            with _profile.solve_profile(metrics.round_index) as ppath:
+                flows = self._solve_banded(
+                    ecs, mt, metrics, on_band=on_band,
+                    on_band_reset=on_band_reset,
+                )
+            if ppath is not None:
+                _trace.current().set(profile_path=ppath)
         except BaseException:
             # A failed solve must not leave a worker chunk mutating shared
             # state for a round that never commits: join, then propagate.
@@ -1073,7 +1125,8 @@ class RoundPlanner:
             n += 1
         return n, np.sort(idx)
 
-    def _solve_banded(self, ecs, mt, metrics, on_band=None) -> np.ndarray:
+    def _solve_banded(self, ecs, mt, metrics, on_band=None,
+                      on_band_reset=None) -> np.ndarray:
         """The round's solve: size-banded transportation with committed
         resources flowing between bands.
 
@@ -1129,9 +1182,17 @@ class RoundPlanner:
         self._telem_curves = []
         entry_min = -1
         phase_sums = None
-        remaining = sorted(set(bands.tolist()))
-        pipe = self._maybe_pipeline(len(remaining))
         self._cross_spec_t = None
+        remaining = sorted(set(bands.tolist()))
+        if len(remaining) > 1:
+            chained = self._try_chained_wave(
+                ecs, mt, bands, remaining, committed_cpu, committed_ram,
+                committed_net, base_slots, flows_full, metrics, on_band,
+                on_band_reset,
+            )
+            if chained is not None:
+                return chained
+        pipe = self._maybe_pipeline(len(remaining))
         first_band, first_idx = None, None
         while remaining:
             n_bands, idx = self._next_band_group(
@@ -1304,6 +1365,160 @@ class RoundPlanner:
             t.gu_firings() for _, t in self._telem_curves)
         metrics.telem_decay_half_life = dominant[1].decay_half_life()
         metrics.telem_iters_to_90 = dominant[1].iters_to_drain(0.9)
+
+    def _try_chained_wave(self, ecs, mt, bands, remaining, committed_cpu,
+                          committed_ram, committed_net, base_slots,
+                          flows_full, metrics, on_band, on_band_reset):
+        """The chained two-band wave (ops/transport_chained), or None to
+        fall through to the per-band loop.
+
+        Gates: ``chain_gate()`` (``POSEIDON_CHAINED=1``, off by
+        default), the auction solver, the cpu_mem model without real net
+        bounds, no gang rows, exactly two band groups under the
+        base-committed grouping gate, and no usable warm frame for either
+        group (fresh-wave territory: warm churn rounds are answered by
+        the host certificate or the warm solve, both cheaper)."""
+        from poseidon_tpu_torch.costmodel.cpu_mem import CpuMemCostModel
+        from poseidon_tpu_torch.costmodel.device_build import (
+            extract_band_operands,
+        )
+        from poseidon_tpu_torch.ops import transport_chained as TCH
+
+        if not TCH.chain_gate():
+            return None
+        if (
+            self.flow_solver == "ssp"
+            or type(self.cost_model) is not CpuMemCostModel
+            # Zero net capacity means unknown/unlimited (MachineTable
+            # contract) and is inert in _column_caps; only real net
+            # bounds need the host path (no net dimension on the device).
+            or (mt.net_rx_capacity is not None
+                and bool(np.asarray(mt.net_rx_capacity).any()))
+            or (self.gang_scheduling and ecs.is_gang is not None
+                and bool(ecs.is_gang.any()))
+        ):
+            log.debug(
+                "chained wave: config gate declined (solver=%s model=%s "
+                "net=%s gang=%s)", self.flow_solver,
+                type(self.cost_model).__name__,
+                mt.net_rx_capacity is not None,
+                ecs.is_gang is not None and bool(ecs.is_gang.any()),
+            )
+            return TCH._outcome(TCH.DECLINED_CONFIG)
+        # Grouping under base commitment (an approximation of the loop's
+        # own gate, which re-evaluates after band 1 commits; capacity
+        # soundness is recomputed exactly on the device for whatever
+        # partition this picks).
+        n1, idx1 = self._next_band_group(
+            remaining, bands, ecs, mt, committed_cpu, committed_ram,
+            committed_net,
+        )
+        rest = remaining[n1:]
+        if not rest:
+            # A single group: the plain fused path is ideal.
+            return TCH._outcome(TCH.DECLINED_GROUPS)
+        n2, idx2 = self._next_band_group(
+            rest, bands, ecs, mt, committed_cpu, committed_ram,
+            committed_net,
+        )
+        if rest[n2:]:
+            log.debug("chained wave: >2 band groups; per-band path")
+            return TCH._outcome(TCH.DECLINED_GROUPS)
+        if self.incremental:
+            uuid_set_now = set(mt.uuids)
+            for key_band, idx in (
+                (int(remaining[0]), idx1), (int(rest[0]), idx2),
+            ):
+                warm = self._warm_bands.get(key_band)
+                if warm is None:
+                    continue
+                # Usability, not presence: a frame stranded by EC churn
+                # remaps to a cold start anyway.  A full-overlap frame
+                # signals churn, where the warm machinery beats re-solving
+                # both bands cold.
+                ids_now = set(ecs.ec_ids[idx].tolist())
+                if (warm.prices is not None
+                        and ids_now <= set(warm.ec_ids)
+                        and uuid_set_now <= set(warm.machine_uuids)):
+                    log.debug("chained wave: usable warm frame for band "
+                              "%d; warm path owns it", key_band)
+                    return TCH._outcome(TCH.DECLINED_WARM)
+        ecs_1 = slice_ecs(ecs, idx1)
+        ecs_2 = slice_ecs(ecs, idx2)
+        mt_b = _with_usage(
+            mt, committed_cpu, committed_ram, committed_net,
+            np.maximum(base_slots, 0).astype(np.int32),
+        )
+        cm1 = self.cost_model.build(ecs_1, mt_b)
+        col1, _ = _column_caps(
+            ecs_1, cm1, mt, committed_cpu, committed_ram, committed_net
+        )
+        ops2 = extract_band_operands(ecs_2, mt_b, self.cost_model)
+        fired = []
+
+        def early(flows1):
+            # Band 1's flows are final the moment they land: start its
+            # assignment on the worker thread while this thread reads
+            # band 2's cost plane and certifies both bands.  A later
+            # decline discards the speculative chunk (on_band_reset).
+            if on_band is None:
+                return
+            flows_full[idx1] = flows1
+            fired.append(True)
+            on_band(idx1, False, flows_full)
+
+        out = TCH.solve_wave_chained(
+            cm1.costs, ecs_1.supply, col1, cm1.unsched_cost,
+            cm1.arc_capacity,
+            ecs_1.cpu_request.astype(np.int32),
+            ecs_1.ram_request.astype(np.int32),
+            ops2, ecs_2.supply,
+            max_cost_hint=self.cost_model.max_cost(),
+            global_update_every=self.global_update_every,
+            early=early, device=self.device,
+        )
+        if out is None:
+            if fired and on_band_reset is not None:
+                on_band_reset()
+            return None
+        sol1, sol2, costs2 = out
+        flows_full[idx1] = sol1.flows
+        flows_full[idx2] = sol2.flows
+        metrics.objective = sol1.objective + sol2.objective
+        metrics.gap_bound = max(sol1.gap_bound, sol2.gap_bound)
+        metrics.iterations = sol1.iterations + sol2.iterations
+        metrics.bf_sweeps = sol1.bf_sweeps + sol2.bf_sweeps
+        metrics.solve_tier = "dense"  # a full-plane solve
+        # Entry and phase telemetry for the early return (the banded
+        # loop's aggregation never runs): min/sum over the two bands.
+        metrics.ladder_entry_phase = min(
+            int(sol1.entry_phase), int(sol2.entry_phase)
+        )
+        if sol1.phase_iters or sol2.phase_iters:
+            p1 = list(sol1.phase_iters) or [0] * len(sol2.phase_iters)
+            p2 = list(sol2.phase_iters) or [0] * len(p1)
+            metrics.solve_phase_iters = [
+                int(a) + int(b) for a, b in zip(p1, p2)
+            ]
+        if self.incremental:
+            for key_band, ecs_b, sol, costs_b, unsched_b in (
+                (int(remaining[0]), ecs_1, sol1, cm1.costs,
+                 cm1.unsched_cost),
+                (int(rest[0]), ecs_2, sol2, costs2, ops2["unsched"]),
+            ):
+                self._warm_bands[key_band] = _WarmState(
+                    ec_ids=list(ecs_b.ec_ids.tolist()),
+                    machine_uuids=list(mt.uuids),
+                    prices=sol.prices, flows=sol.flows,
+                    unsched=sol.unsched,
+                    costs=costs_b.astype(np.int64),
+                    unsched_cost=unsched_b.astype(np.int64),
+                )
+        if on_band is not None:
+            if not fired:
+                on_band(idx1, False, flows_full)
+            on_band(idx2, True, flows_full)
+        return flows_full
 
     def _maybe_pipeline(self, n_bands: int):
         """The cross-band pipeline, when it can pay: more than one band
@@ -1488,7 +1703,7 @@ class RoundPlanner:
         when the gate declines or any stage escalates — the caller then
         runs the dense path with the SAME warm state (or the escalation's
         carry)."""
-        if not hatch_bool("POSEIDON_PRUNED"):
+        if self.flow_solver != "auction" or not hatch_bool("POSEIDON_PRUNED"):
             return None
         E, M = cm.costs.shape
         scale_full = None
@@ -1706,7 +1921,8 @@ class RoundPlanner:
         prices, flows0, unsched0, eps_start = warm_state
         sol = None
         eps_is_exact = warm_eps_exact
-        if prices is None and hatch_bool("POSEIDON_COARSE"):
+        if (prices is None and self.flow_solver != "ssp"
+                and hatch_bool("POSEIDON_COARSE")):
             # Fresh-wave coarse start: solve the machine-aggregated
             # [E, 256] instance, lift its duals and primal, and start the
             # ladder at the lift's certified epsilon.  On the card the

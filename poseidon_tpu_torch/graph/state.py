@@ -249,6 +249,8 @@ class ClusterState:
         # admitted-arrival counter, and dirty-hint sets (EC ids / machine uuids) feeding the cost-
         # plane cache's ingest seam.  All under self._lock.
         self._ingest_log: deque = deque()
+        # The last arrival's monotonic timestamp (None before the first).
+        self.last_ingest_ts: Optional[float] = None
         self._ingest_count = 0
         self._ingest_ecs: Set[int] = set()
         self._ingest_machines: Set[str] = set()
@@ -311,6 +313,7 @@ class ClusterState:
             if len(self._ingest_log) < self._INGEST_LOG_CAP:
                 self._ingest_log.append(now)
             self._ingest_count += 1
+            self.last_ingest_ts = now
         self._generation = value
 
     def _ingest_hint(self, ec: Optional[int] = None,
@@ -353,6 +356,13 @@ class ClusterState:
             self._ingest_ecs, self._ingest_machines = set(), set()
             return rows, cols
 
+    def ingest_age_s(self) -> Optional[float]:
+        """Seconds since the last externally-driven mutation (None
+        before the first) — the service-side ingest-liveness signal."""
+        with self._lock:
+            if self.last_ingest_ts is None:
+                return None
+            return time.monotonic() - self.last_ingest_ts
 
     # ------------------------------------------------------------------ tasks
 

@@ -3,7 +3,8 @@
 The core is one translation unit with a plain C interface, so it builds
 with ``g++ -O2 -shared -fPIC -std=c++17`` alone into a shared library
 under ``build/poseidon_tpu_torch/`` at the repository root (never into
-the package directory), keyed by a hash of the source and flags: a fresh
+the package directory; ``POSEIDON_COMPILE_CACHE_DIR`` names another
+directory), keyed by a hash of the source and flags: a fresh
 checkout builds from its own source and later uses reuse the build.  The
 build writes a temporary file and renames it, so processes that build at
 once do not see each other's partial output.
@@ -30,7 +31,9 @@ _lib_error: Optional[str] = None
 
 
 def build_dir() -> Path:
-    return Path(__file__).resolve().parents[2] / "build" / "poseidon_tpu_torch"
+    from poseidon_tpu_torch.utils.envutil import kernel_build_dir
+
+    return kernel_build_dir()
 
 
 def library_path() -> Path:

@@ -656,6 +656,43 @@ def observe_loop(stats, *, resyncs: int = 0, crash_loop_budget: int = 0,
     ).set(float(ingest_lag_s))
 
 
+def observe_scenario(name: str, *, robustness_score: float = 0.0,
+                     placements_per_sec: float = 0.0,
+                     regression_p90: float = 0.0,
+                     placement_divergence: float = 0.0,
+                     admission_staleness_p50_s: float = 0.0,
+                     admission_staleness_p99_s: float = 0.0,
+                     ok: bool = True,
+                     registry: Optional[Registry] = None) -> None:
+    """Feed one scenario's headline series (``scenario/score.py`` and
+    ``scenario/drive.py`` results), labelled by scenario name."""
+    reg = registry or _REGISTRY
+    for key, help_text, val in (
+        ("robustness_score",
+         "1/(1+p90 |objective regression|) across cost-perturbation "
+         "seeds; 0 when any gated run failed", robustness_score),
+        ("placements_per_sec",
+         "Placement throughput over the scenario's solve windows",
+         placements_per_sec),
+        ("regression_p90",
+         "p90 |relative objective regression| under cost perturbation",
+         regression_p90),
+        ("placement_divergence",
+         "Mean fraction of rounds whose placement digest moved under "
+         "cost perturbation", placement_divergence),
+        ("admission_staleness_p50_s",
+         "p50 realized admission staleness across scenario rounds",
+         admission_staleness_p50_s),
+        ("admission_staleness_p99_s",
+         "p99 realized admission staleness across scenario rounds",
+         admission_staleness_p99_s),
+        ("ok", "1 when every scenario gate held", float(bool(ok))),
+    ):
+        reg.gauge(
+            f"poseidon_scenario_{key}", help_text, ("scenario",)
+        ).set(float(val), name)
+
+
 def observe_locks(registry: Optional[Registry] = None) -> None:
     """Expose the TrackedLock ledger's process-wide counters
     (utils/locks.py): contention events, time spent waiting, time spent

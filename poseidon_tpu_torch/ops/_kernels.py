@@ -4,7 +4,8 @@ The sources under ``ops/csrc/`` expose plain C entry points, so they build
 with ``nvcc`` alone (no PyTorch headers) into shared libraries that
 ``ctypes`` loads.  Each source builds in its own ``nvcc`` process, all
 started together, into a library of its own under
-``build/poseidon_tpu_torch/`` at the repository root, keyed by a hash of
+``build/poseidon_tpu_torch/`` at the repository root (or the directory
+``POSEIDON_COMPILE_CACHE_DIR`` names), keyed by a hash of
 the sources and flags: a fresh checkout builds everything from its own
 sources and a second use in the same checkout reuses the build.
 
@@ -24,7 +25,7 @@ from types import SimpleNamespace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("fused_ladder.cu", "tiled_iteration.cu", "global_update.cu",
-            "coarse_disaggregate.cu")
+            "coarse_disaggregate.cu", "greedy_seed.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,7 +35,7 @@ NVCC_FLAGS = (
 # Launch counts, one per kernel: each wrapper adds one where it launches
 # its kernel and nowhere else.
 LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0, "global_update": 0,
-            "coarse_disaggregate": 0}
+            "coarse_disaggregate": 0, "greedy_seed": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -46,7 +47,9 @@ def reset_launches() -> None:
 
 
 def build_dir() -> Path:
-    return Path(__file__).resolve().parents[2] / "build" / "poseidon_tpu_torch"
+    from poseidon_tpu_torch.utils.envutil import kernel_build_dir
+
+    return kernel_build_dir()
 
 
 def _nvcc() -> str:
@@ -137,6 +140,8 @@ def lib() -> SimpleNamespace:
                  [P] * 8 + [I] * 4 + [P], I)
             bind("coarse_disaggregate.cu",
                  "pt_coarse_disaggregate_smem_bytes", [I], ctypes.c_size_t)
+            bind("greedy_seed.cu", "pt_greedy_seed", [P] * 6 + [I] * 2 + [P],
+                 I)
             _LIB = SimpleNamespace(**fns)
             # The kernels' build or load is this process's compile event.
             from poseidon_tpu_torch.check.ledger import note_compile

@@ -297,7 +297,9 @@ class _Telemetry:
     ``stage_reads`` counts host reads by phase-loop stage
     (``solve.device.<impl>.iterate``, ``.global_update``, ``.other``).
     ``coarse_outcomes`` counts the one-program coarse start's runs
-    (``transport_coarse``) by what each did: ran, or why it declined.
+    (``transport_coarse``) by what each did: ran, or why it declined, and
+    ``chained_outcomes`` the chained two-band wave's
+    (``transport_chained``) likewise.
     """
 
     device_calls = 0
@@ -308,11 +310,15 @@ class _Telemetry:
     route_sweeps: Counter = Counter()
     stage_reads: Counter = Counter()
     coarse_outcomes: Counter = Counter()
+    chained_outcomes: Counter = Counter()
 
 
 def device_call_count() -> int:
     return _Telemetry.device_calls
 
+
+def host_cert_count() -> int:
+    return _Telemetry.host_cert_returns
 
 
 def host_read_count() -> int:

@@ -30,6 +30,7 @@ from poseidon_tpu_torch.protos.services import (
 )
 from poseidon_tpu_torch.service import converters
 from poseidon_tpu_torch.obs import metrics as obs_metrics
+from poseidon_tpu_torch.obs import profile as obs_profile
 from poseidon_tpu_torch.utils.config import FirmamentTPUConfig, load_config
 from poseidon_tpu_torch.utils.locks import TrackedLock
 
@@ -45,6 +46,7 @@ class FirmamentServicer:
         planner_kw = dict(
             gang_scheduling=self.config.gang_scheduling,
             pod_affinity=self.config.pod_affinity,
+            flow_solver=self.config.flow_solver,
         )
         state = planner = None
         path = self.config.checkpoint_path
@@ -124,7 +126,17 @@ class FirmamentServicer:
     def Schedule(self, request, context):
         self.ensure_precompiled()
         with self._schedule_lock:
-            deltas, metrics = self.planner.schedule_round()
+            if self.config.profile_dir:
+                # Rounds are serialized on _schedule_lock (one solver, one
+                # device stream); the capture runs under it by design.
+                ppath = os.path.join(
+                    self.config.profile_dir,
+                    f"round_{self.planner.state.round_index:06d}",
+                )
+                with obs_profile.capture(ppath):
+                    deltas, metrics = self.planner.schedule_round()
+            else:
+                deltas, metrics = self.planner.schedule_round()
         log.info(
             "round %d: %d tasks / %d ECs / %d machines -> "
             "%d place %d preempt %d migrate %d unsched; "
@@ -141,6 +153,10 @@ class FirmamentServicer:
         # to_dict) plus the process-wide lock-ledger counters.
         obs_metrics.observe_round(metrics)
         obs_metrics.observe_ledger()
+        # Round boundaries are the sampling cadence of the per-device
+        # memory gauges (obs/profile.py: in use / peak / limit per device,
+        # live-block count).
+        obs_profile.observe_device_memory()
         every = self.config.checkpoint_every_rounds
         if (
             self.config.checkpoint_path and every > 0
@@ -305,6 +321,22 @@ def main(argv=None) -> None:
         level=logging.INFO,
         format="%(asctime)s %(levelname).1s %(name)s] %(message)s",
     )
+    from poseidon_tpu_torch.utils.envutil import (
+        device_lock_path,
+        enable_compilation_cache,
+        serialize_device_access,
+    )
+
+    # Kernel builds land in one directory a restart reuses
+    # (POSEIDON_COMPILE_CACHE_DIR, else the checkout's build/).
+    enable_compilation_cache()
+    # One card-touching process at a time, host-wide: block until the
+    # lock is held (False strictly means busy).
+    if not serialize_device_access():
+        log.warning(
+            "device lock %s busy; waiting indefinitely", device_lock_path()
+        )
+        serialize_device_access(timeout=None)
     cfg = load_config(FirmamentTPUConfig, argv=argv)
     server = FirmamentTPUServer(config=cfg).start()
     stop = threading.Event()

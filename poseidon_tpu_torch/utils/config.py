@@ -68,11 +68,12 @@ class FirmamentTPUConfig:
     # Prometheus exposition endpoint (obs/metrics.MetricsServer) for the
     # service process, where the rounds run.  Empty disables it.
     metrics_address: str = ""
-    # Cost model selection: "cpu_mem" (the reference's active model) or
-    # "trivial".
+    # Cost model selection: "cpu_mem" (the reference's active model),
+    # "trivial", "net", "whare" or "coco".
     cost_model: str = "cpu_mem"
-    # Solver selection: "auction", the cost-scaling push-relabel ladder,
-    # is the only solver the port has.
+    # Solver selection: "auction", the cost-scaling push-relabel ladder
+    # on the device, or "ssp", the host network-simplex oracle (exact,
+    # slow; solver/oracle.py, needs networkx).
     flow_solver: str = "auction"
     # Precompile ceilings: with precompile=True the first Schedule()
     # runs the planner's precompile — the kernels' load and one probe
@@ -91,8 +92,8 @@ class FirmamentTPUConfig:
     # Devices the solve's machine axis is split over; the port solves on
     # one.
     solver_devices: int = 1
-    # Per-round profiler captures; the port has no profiler hook yet, so
-    # it must stay empty.
+    # When set, each Schedule() round is captured with torch.profiler
+    # into this directory (obs/profile.py: <dir>/round_<n>/trace.json).
     profile_dir: str = ""
     # Checkpoint/restore: when set, the service restores state + solver
     # warm frames from this path at startup and saves on shutdown;
@@ -106,18 +107,14 @@ class FirmamentTPUConfig:
     def validate(self) -> None:
         """Raise ``ValueError`` on a value the port cannot honour yet,
         rather than run something other than what was asked for."""
-        if self.flow_solver != "auction":
+        if self.flow_solver not in ("auction", "ssp"):
             raise ValueError(
-                f"flow_solver {self.flow_solver!r}: the port has only the "
-                "'auction' solver")
+                f"flow_solver {self.flow_solver!r}: the port has the "
+                "'auction' and 'ssp' solvers")
         if self.solver_devices != 1:
             raise ValueError(
                 f"solver_devices {self.solver_devices}: the port solves on "
                 "one device")
-        if self.profile_dir:
-            raise ValueError(
-                f"profile_dir {self.profile_dir!r}: the port has no "
-                "profile support yet; leave it empty")
 
 
 def _str2bool(s: str) -> bool:

@@ -86,6 +86,9 @@ HATCHES: Tuple[Hatch, ...] = (
 
     Hatch("POSEIDON_MERGE_BANDS", "tristate", "",
           "Merge compatible size bands into one solve (CUDA default on)"),
+    Hatch("POSEIDON_CHAINED", "bool_off", "0",
+          "Chained two-band wave device program (ops/transport_chained.py; "
+          "A/B path, default OFF)"),
 
     Hatch("POSEIDON_PRUNED", "bool_on", "1",
           "Pruned-plane solve path: per-row shortlists + price-out "
@@ -134,6 +137,10 @@ HATCHES: Tuple[Hatch, ...] = (
           "Record hierarchical spans (Perfetto-exportable; obs/trace.py)"),
     Hatch("POSEIDON_STAGE_TIMERS", "bool_off", "0",
           "Aggregate per-span wall timings without recording spans"),
+    Hatch("POSEIDON_JAX_PROFILE", "str", "",
+          "Directory for torch.profiler captures around each round's "
+          "solve window (obs/profile.py; empty = off; the reference's "
+          "name)"),
     Hatch("POSEIDON_ROUND_HISTORY", "int", "128",
           "Round-history ring capacity behind /debug/rounds "
           "(obs/history.py); 0 disables recording"),
@@ -150,6 +157,18 @@ HATCHES: Tuple[Hatch, ...] = (
           "contract (finite floats, int32 values clear of the rails); "
           "anomalies feed RoundMetrics.numeric_anomalies and any open "
           "check.ledger.NumericsLedger window"),
+
+    Hatch("POSEIDON_COMPILE_CACHE_DIR", "str", "",
+          "Build directory of the CUDA kernels and the native graph core "
+          "(ops/_kernels.build_dir; empty = build/poseidon_tpu_torch "
+          "under the checkout)"),
+    Hatch("POSEIDON_DEVICE_LOCK", "str", "",
+          "Path of the host-wide exclusive accelerator flock (empty = "
+          "poseidon_tpu_device.lock in the process's temporary "
+          "directory)"),
+    Hatch("POSEIDON_DEVICE_LOCK_TIMEOUT", "float", "600",
+          "Seconds to wait for the accelerator lock before declaring "
+          "BUSY"),
 
     Hatch("POSEIDON_REPLAY_PROGRESS", "flag", "",
           "Per-round progress breadcrumbs on stderr during replay"),
@@ -253,3 +272,39 @@ def _numeric_fallback(h: Hatch, default, conv):
     if h.default == "":
         raise TypeError(f"hatch {h.name} declares no default; pass default=")
     return conv(h.default)
+
+
+_KIND_LABEL = {
+    "bool_on": "bool (default on; `0` disables)",
+    "bool_off": "bool (default off; `1` enables)",
+    "flag": "flag (any non-empty value)",
+    "tristate": "tristate (`1` on / `0` off / unset = device policy)",
+    "int": "int",
+    "float": "float",
+    "str": "string",
+}
+
+
+def markdown_table() -> str:
+    """The port's hatch table as markdown (``python -m
+    poseidon_tpu_torch.utils.hatches``)."""
+    lines = [
+        "# POSEIDON_* escape hatches (torch port)",
+        "",
+        "GENERATED by `python -m poseidon_tpu_torch.utils.hatches` from the",
+        "registry in `poseidon_tpu_torch/utils/hatches.py`.",
+        "",
+        "| hatch | kind | default | effect |",
+        "| --- | --- | --- | --- |",
+    ]
+    for h in HATCHES:
+        default = h.default if h.default != "" else "(unset)"
+        lines.append(
+            f"| `{h.name}` | {_KIND_LABEL[h.kind]} | `{default}` | "
+            f"{h.doc} |"
+        )
+    return "\n".join(lines) + "\n"
+
+
+if __name__ == "__main__":
+    print(markdown_table(), end="")

@@ -12,6 +12,10 @@ raises ``SaturationError`` naming the offending array and site:
 - ``certify_i32_total``: the host-boundary certificate that the int32
   sum of an array (the solver's total supply) cannot wrap the kernels'
   int32 flow sums.
+- ``checked_narrow_i32``: narrowing to int32 through a declared window,
+  clamped or raising;
+- ``i32_headroom``: the distance of an array's extrema from the int32
+  rails, for callers that report rather than assert.
 
 Failures raise ``SaturationError`` and are also counted as numeric
 anomalies on the process-wide ``check.ledger.numeric_anomaly_count``
@@ -21,7 +25,7 @@ gate see certificate trips too.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -108,3 +112,46 @@ def certify_i32_total(arr: np.ndarray, *, site: str,
         _note_anomaly(desc)
         raise SaturationError(desc)
     return total
+
+
+def checked_narrow_i32(arr: np.ndarray, *, site: str,
+                       lo: int = 0, hi: int = I32_MAX,
+                       clamp: bool = True) -> np.ndarray:
+    """Narrow a wider (int64/float) array to int32 through a declared
+    ``[lo, hi]`` window.
+
+    With ``clamp=True`` out-of-window values saturate at the window
+    edges (the declared saturation bound); with ``clamp=False`` any
+    out-of-window value raises ``SaturationError`` instead (use when
+    clamping would silently alter semantics).  Either way the result is
+    certified int32: no silent two's-complement wrap is reachable."""
+    if not (I32_MIN <= lo <= hi <= I32_MAX):
+        raise ValueError(
+            f"{site}: narrow window [{lo}, {hi}] must sit inside int32"
+        )
+    a = np.asarray(arr)
+    if a.size == 0:
+        return a.astype(np.int32)
+    amin, amax = a.min(), a.max()
+    if amin < lo or amax > hi:
+        if not clamp:
+            desc = (
+                f"{site}: {a.dtype}{list(a.shape)} outside declared "
+                f"narrow window [{lo}, {hi}] (min={amin}, max={amax}) "
+                "with clamping not declared legal"
+            )
+            _note_anomaly(desc)
+            raise SaturationError(desc)
+        a = np.clip(a, lo, hi)
+    return a.astype(np.int32)
+
+
+def i32_headroom(arr: np.ndarray) -> Optional[int]:
+    """Remaining distance from the array's extrema to the int32 rails
+    (``None`` for empty arrays) — the telemetry form of the headroom
+    certificate, for callers that report rather than assert."""
+    a = np.asarray(arr)
+    if a.size == 0:
+        return None
+    lo, hi = _extrema(a)
+    return int(min(I32_MAX - hi, lo - I32_MIN))

@@ -1,8 +1,10 @@
 """The port's service configuration against the JAX package's.
 
 The deploy profile loads to the same values in both packages, and a value
-the port cannot honour yet (another solver, more than one device, a
-profiler) raises instead of being dropped; a metrics endpoint is honoured.
+the port cannot honour yet (more than one device) raises instead of being
+dropped; the values it has come to honour (the ``ssp`` solver, a profiler
+directory) load as the reference loads them, and a metrics endpoint is
+honoured.
 """
 
 from pathlib import Path
@@ -37,16 +39,28 @@ def test_deploy_profile_loads_like_reference():
     assert t.gang_scheduling is False
 
 
+# Values the port once refused and now honours, as the reference does.
+HONOURED = ("flow_solver", "profile_dir")
+
+
 @pytest.mark.parametrize("line,key", [
     ("flow_solver: ssp", "flow_solver"),
     ("solver_devices: 8", "solver_devices"),
     ("profile_dir: /tmp/prof", "profile_dir"),
 ])
 def test_unsupported_values_raise(tmp_path, line, key):
+    """A value the port cannot honour raises; one it honours since the
+    ssp oracle and the profiler bridge loads as the reference's does."""
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(PROFILE.read_text() + line + "\n")
+    argv = ["--config-file", str(cfg)]
+    if key in HONOURED:
+        t = load_config(FirmamentTPUConfig, argv=argv)
+        assert getattr(t, key) == getattr(j_load_config(JConfig, argv=argv),
+                                          key) == line.split(": ")[1]
+        return
     with pytest.raises(ValueError, match=key):
-        load_config(FirmamentTPUConfig, argv=["--config-file", str(cfg)])
+        load_config(FirmamentTPUConfig, argv=argv)
 
 
 def test_metrics_address_is_honoured(tmp_path):
@@ -74,6 +88,12 @@ def test_glue_config_loads_like_reference(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--flow-solver=ssp", "--solver-devices=2"])
 def test_unsupported_flags_raise(flag):
+    """``--solver-devices=2`` raises; ``--flow-solver=ssp`` is honoured
+    now, and an unknown solver raises in its place."""
+    if flag == "--flow-solver=ssp":
+        assert load_config(FirmamentTPUConfig, argv=[flag]).flow_solver == \
+            "ssp"
+        flag = "--flow-solver=cs2"
     with pytest.raises(ValueError):
         load_config(FirmamentTPUConfig, argv=[flag])
 

@@ -3,7 +3,11 @@
 Seeded clusters go into both packages' ClusterState; the round views and
 the ``cpu_mem`` (and ``trivial``) cost, arc-capacity and capacity planes
 must be equal, with and without node selectors and pod (anti-)affinity,
-and so must the planner's resource-safe column capacities.
+and so must the planner's resource-safe column capacities.  The
+network-aware ``net`` and the interference-aware ``whare`` and ``coco``
+models are held to the reference the same way, on clusters with NIC
+capacities, task classes, CoCo penalties and running tasks, and through
+whole planner rounds.
 """
 
 import numpy as np
@@ -103,3 +107,76 @@ def test_column_caps_bit_equal(seed):
     ct, nt = t_instance._column_caps(tv.ecs, tc, mt_t, *args_t)
     np.testing.assert_array_equal(cj, ct)
     np.testing.assert_array_equal(nj, nt)
+
+
+def _interference_cluster(mod, seed, machines=48, tasks=300):
+    """NIC capacities and usage, four task classes, CoCo penalties on
+    some machines and running tasks, so every model term is live."""
+    rng = np.random.default_rng(100 + seed)
+    st = mod.ClusterState()
+    hw = [(16000, 64 << 20), (32000, 128 << 20), (64000, 256 << 20)]
+    for i in range(machines):
+        cpu, ram = hw[i % 3]
+        m = mod.MachineInfo(
+            uuid=generate_uuid(f"im-m{seed}-{i}"), cpu_capacity=cpu,
+            ram_capacity=ram, task_slots=int(rng.integers(4, 24)),
+            net_rx_capacity=int(rng.choice([0, 2000, 10_000])),
+            cpu_util=float(rng.random()), mem_util=float(rng.random()),
+        )
+        if i % 3 == 1:
+            m.coco_penalties = tuple(int(x) for x in
+                                     rng.integers(0, 600, size=4))
+        st.node_added(m)
+    for i in range(tasks):
+        e = int(rng.integers(0, 12))
+        st.task_submitted(mod.TaskInfo(
+            uid=hash_combine(seed, i), job_id=f"im-{e}",
+            cpu_request=200 + 300 * e, ram_request=(1 << 18) * (1 + e % 5),
+            net_rx_request=[0, 150, 400][e % 3], task_type=e % 4,
+        ))
+    placed = [(hash_combine(seed, i), generate_uuid(f"im-m{seed}-{i % 11}"))
+              for i in range(0, tasks, 5)]
+    st.apply_placements(placed)
+    return st
+
+
+@pytest.mark.parametrize("model", ["net", "whare", "coco"])
+@pytest.mark.parametrize("seed", range(2))
+def test_interference_and_net_planes_bit_equal(model, seed):
+    jv = _interference_cluster(j_state, seed).build_round_view()
+    tv = _interference_cluster(t_state, seed).build_round_view()
+    assert jv.machines.uuids == tv.machines.uuids
+    jc = j_cost_model(model).build(jv.ecs, jv.machines)
+    tc = get_cost_model(model).build(tv.ecs, tv.machines)
+    for f in ("costs", "unsched_cost", "capacity", "arc_capacity"):
+        a, b = getattr(jc, f), getattr(tc, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a, b, f)
+    base = get_cost_model("cpu_mem").build(tv.ecs, tv.machines)
+    finite = tc.costs < j_instance.INF_COST
+    # The model's own term is live, not a copy of the base plane.
+    assert (tc.costs[finite] != base.costs[finite]).any()
+    # The models keep the reference's delta-plane opt-in (off).
+    assert get_cost_model(model).delta_plane is \
+        j_cost_model(model).delta_plane is False
+
+
+@pytest.mark.parametrize("model", ["net", "whare", "coco"])
+def test_interference_and_net_rounds_identical(model):
+    from poseidon_tpu.graph.instance import RoundPlanner as JPlanner
+
+    jp = JPlanner(_interference_cluster(j_state, 0), j_cost_model(model))
+    tp = t_instance.RoundPlanner(_interference_cluster(t_state, 0),
+                                 get_cost_model(model), device="cpu")
+    placed = []
+    for _ in range(2):
+        jd, jm = jp.schedule_round()
+        td, tm = tp.schedule_round()
+        assert [(d.task_id, d.resource_id, int(d.type)) for d in jd] == \
+            [(d.task_id, d.resource_id, int(d.type)) for d in td]
+        for name in ("placed", "unscheduled", "objective", "iterations",
+                     "gap_bound", "device_calls"):
+            assert getattr(jm, name) == getattr(tm, name), name
+        placed.append(tm.placed)
+    assert placed[0] > 0

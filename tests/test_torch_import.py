@@ -57,6 +57,13 @@ assert {"poseidon_tpu_torch.ops.transport_coarse",
         "poseidon_tpu_torch.scenario.generate",
         "poseidon_tpu_torch.scenario.score",
         "poseidon_tpu_torch.scenario.drive",
+        "poseidon_tpu_torch.obs.profile", "poseidon_tpu_torch.utils.envutil",
+        "poseidon_tpu_torch.protos.gen", "poseidon_tpu_torch.solver",
+        "poseidon_tpu_torch.solver.oracle",
+        "poseidon_tpu_torch.costmodel.net",
+        "poseidon_tpu_torch.costmodel.interference",
+        "poseidon_tpu_torch.costmodel.device_build",
+        "poseidon_tpu_torch.ops.transport_chained",
         } <= set(names), names
 import chip_smoke
 bad = [m for m in sys.modules
