@@ -94,8 +94,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    equal, fewer bytes uploaded per warm solve with the cache on, the
    resident tensors equal to their host copies; per solve the bytes
    uploaded, ``solve.upload``'s host and device time and ``solve.device``;
-7. the glue drive: a FakeKube holding the main path's cluster (10,000
-   nodes, 100,000 pods) brought in by the port's watchers through its
+   before it, the mesh-sharded solve (B6) on logical shards of the card
+   (a mesh listing ``cuda:0`` k times): ``make_solver_mesh(2)`` on this
+   machine is the one-device solve, and the tier gate finds no mesh of
+   the card's own; the contended cluster (``_contended``: 10,000
+   machines of 8 slots, 48,000 pods in 24 shapes) with the sharded tier
+   off (``POSEIDON_COARSE_FUSED=0``), then on (``POSEIDON_SHARDED_BANDS=1``
+   with a mesh of 4 logical shards swapped into the planner) with
+   contiguous shards (deltas byte-identical to the tier-off drive's, the
+   wave's tier ``sharded`` on 4 shards) and strided (the same objective
+   and placed count), each a wave and one churn round; then k = 2, 4, 8
+   shards on that drive's band and on the main path's wave band
+   ([32, 10240] and [128, 10240]): contiguous every field bit-equal to
+   the one-device solve with the kernels, with the plain ladder's host
+   reads, strided the same objective, certified; each timed by host
+   clock beside the one-device solves and the ladder's bound;
+7. the glue drive: a FakeKube holding the main path's cluster shapes at
+   a quarter of its size (2,500 nodes, 25,000 pods) brought in by the
+   port's watchers through its
    client to its server on the card, the checkpoint saved, then the wave
    and three churn rounds (1% of the pods deleted and recreated), each
    ``schedule_once()``: every round certifies and binds every pod, and
@@ -172,7 +188,8 @@ TIER_FIELDS = ("solve_tier", "pruned_bands", "pruned_width",
                "pruned_price_out_rounds", "pruned_escalations",
                "pruned_cert_accepts", "cost_delta_hits",
                "cost_rows_rebuilt", "cost_cols_rebuilt",
-               "pipeline_overlap_s")
+               "pipeline_overlap_s", "sharded_bands", "shard_devices",
+               "shard_imbalance")
 # The convergence-telemetry roll-up of each round (RoundMetrics).
 TELEM_FIELDS = ("telem_samples", "telem_gu_firings", "telem_decay_half_life",
                 "telem_iters_to_90")
@@ -2182,6 +2199,320 @@ def main_path(capture):
     return results, launches, ring_cost, chained
 
 
+# ------------------------------------------------------ sharded phase
+
+# Logical shards of the card for the direct solves (a mesh that lists
+# cuda:0 k times), and for the sharded tier's drives.
+SHARD_COUNTS = (2, 4, 8)
+TIER_SHARDS = 4
+# The counts two drives of the same cluster must share when one runs the
+# sharded tier and the other the one-device dense solve.  The tiers'
+# fields differ by the tier's name and counts, and the device calls and
+# host reads by design: the sharded solve, as the reference's, runs no
+# host certificate before its dispatch, so it dispatches (and iterates 0
+# times) where the one-device solve certifies a start on the host.
+SHARD_ROUND_COUNTS = ("placed", "unscheduled", "objective", "iterations",
+                      "bf_sweeps", "seam_reads", "coarse", "telem")
+
+
+def _wide_operands(capture):
+    """The main path's captured band-1 wave ladder (the widest
+    ``[128, M]`` solve) as ``solve_transport``'s host arguments: the
+    padded planes and vectors, its warm start, epsilon, scale and
+    budgets."""
+    from poseidon_tpu_torch.ops.transport import NUM_PHASES as NP
+
+    best = None
+    for big, vec, scale in capture.get("solves") or []:
+        if big.shape[1] == 128 and (best is None
+                                    or big.shape[2] > best[0].shape[2]):
+            best = (big, vec, scale)
+    if best is None:
+        fail("the main path's wave captured no [128, M] ladder")
+    big, vec, scale = best
+    E, M = big.shape[1:]
+    parts, o = {}, 0
+    for name, n in (("supply", E), ("capacity", M), ("unsched", E),
+                    ("prices", E + M + 1), ("fb", E), ("eps", NP)):
+        parts[name] = vec[o:o + n]
+        o += n
+    max_iter_total, global_every, bf_max = (int(v) for v in vec[o:o + 3])
+    args = (big[0], parts["supply"], parts["capacity"], parts["unsched"],
+            parts["prices"])
+    kw = dict(arc_capacity=big[1], init_flows=big[2],
+              init_unsched=parts["fb"], eps_start=int(parts["eps"][0]),
+              eps_exact=True, scale=int(scale), max_iter_total=max_iter_total,
+              global_update_every=global_every, bf_max=bf_max,
+              greedy_init=False)
+    return args, kw
+
+
+def _timed_solve(fn, *args, **kw):
+    """``fn(*args, **kw)``, its host-clock seconds (the card synchronized
+    on both sides), its host reads and its global updates (the sharded
+    solve's, counted by a spy on ``_sh_global_update``)."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops import transport_sharded as TS
+
+    gus = [0]
+    real = TS._sh_global_update
+
+    def counted(*a, **k):
+        gus[0] += 1
+        return real(*a, **k)
+
+    _swap(TS, "_sh_global_update", counted)
+    try:
+        if DEVICE.type == "cuda":
+            torch.cuda.synchronize()
+        r0 = T.host_read_count()
+        t0 = time.perf_counter()
+        sol = fn(*args, **kw)
+        if DEVICE.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        _swap(TS, "_sh_global_update", None)
+    return sol, secs, T.host_read_count() - r0, gus[0]
+
+
+def _solution_diff(a, b) -> list:
+    """The fields two solutions differ in (the arrays, the scalars and
+    the telemetry ring's shared rows)."""
+    diff = [f for f in SOLUTION_FIELDS if getattr(a, f) != getattr(b, f)]
+    diff += [f for f in ("flows", "unsched", "prices")
+             if not np.array_equal(getattr(a, f), getattr(b, f))]
+    ta, tb = a.telemetry, b.telemetry
+    if (ta is None) != (tb is None):
+        diff.append("telemetry")
+    elif ta is not None:
+        diff += [f"telemetry.{f}" for f in (
+            "iters", "active_excess", "active_rows", "active_cols", "eps",
+            "gu_fired", "bf_sweeps", "saturated")
+            if not np.array_equal(getattr(ta, f), getattr(tb, f))]
+    return diff
+
+
+def check_sharded_solves(label, args, kw) -> dict:
+    """The sharded solve (B6) on k = SHARD_COUNTS logical shards of the
+    card against the one-device solve with the kernels: contiguous
+    (``POSEIDON_SHARD_STRIDED=0``) every field bit-equal, with the host
+    reads of the one-device solve with the plain versions forced; strided
+    the same objective, certified.  Each timed by host clock; the bound
+    is the ladder's launches' bounds (its iterations as B2's, its global
+    updates and sweeps as the global update's), which splitting the work
+    over one card does not change."""
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops import transport_sharded as TS
+
+    E, M = args[0].shape
+    # The start's epsilon declared exact, so the one-device solve skips
+    # its host certificate and runs the ladder the sharded solve runs.
+    kw = dict({k: v for k, v in kw.items() if k != "mesh"}, eps_exact=True)
+    one, one_s, one_reads, _ = _timed_solve(T.solve_transport, *args,
+                                            device=DEVICE, **kw)
+    _set_plain_pipeline(True)
+    plain, plain_s, plain_reads, _ = _timed_solve(T.solve_transport, *args,
+                                                  device=DEVICE, **kw)
+    _set_plain_pipeline(False)
+    if _solution_diff(one, plain):
+        fail(f"[{label}] the one-device solve with the kernels and with the "
+             f"plain versions differ: {_solution_diff(one, plain)}")
+    if one.gap_bound != 0.0:
+        fail(f"[{label}] the one-device solve did not certify")
+    rows = []
+    for k in SHARD_COUNTS:
+        mesh = TS.SolverMesh([DEVICE] * k)
+        row = {"k": k}
+        for strided in ("0", "1"):
+            _set_env("POSEIDON_SHARD_STRIDED", strided)
+            sh, secs, reads, gus = _timed_solve(
+                TS.solve_transport_sharded, *args, mesh=mesh, **kw)
+            lanes = (None if sh.telemetry is None
+                     else sh.telemetry.shard_excess)
+            if lanes is None or lanes.shape[0] != k:
+                fail(f"[{label}] k={k}: the ring carries no per-shard lanes")
+            if strided == "0":
+                diff = _solution_diff(one, sh)
+                if diff:
+                    fail(f"[{label}] k={k} contiguous differs from the "
+                         f"one-device solve in {diff}")
+                if reads != plain_reads:
+                    fail(f"[{label}] k={k}: {reads} host reads, the plain "
+                         f"ladder {plain_reads}")
+                row.update(contiguous_s=secs, host_reads=reads,
+                           global_updates=gus,
+                           lane_totals=[int(v) for v in lanes.sum(1)])
+            else:
+                if (sh.objective, sh.gap_bound) != (one.objective, 0.0):
+                    fail(f"[{label}] k={k} strided: objective "
+                         f"{sh.objective}, gap {sh.gap_bound}, the "
+                         f"one-device solve's {one.objective}")
+                row.update(strided_s=secs, strided_iterations=sh.iterations,
+                           strided_lane_totals=[int(v)
+                                                for v in lanes.sum(1)])
+        rows.append(row)
+    _set_env("POSEIDON_SHARD_STRIDED", None)
+    gu = rows[0]["global_updates"]
+    iters, bf = one.iterations, one.bf_sweeps
+    nbytes = 4 * (4 * E * M * iters + (3 * E * M + 6 * E + 5 * M + 5) * gu)
+    ops = E * M * (OPS_PER_CELL_ITER * iters + OPS_PER_CELL_GU_LENGTHS * gu
+                   + OPS_PER_CELL_GU_SWEEP * bf)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    out = {"label": label, "shape": [int(E), int(M)],
+           "iterations": iters, "bf_sweeps": bf, "global_updates": gu,
+           "one_device_kernels_s": one_s, "one_device_plain_s": plain_s,
+           "host_reads": {"kernels": one_reads, "plain": plain_reads},
+           "bound_ms": bound_ms,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= ops / INT32_OPS_PER_S else "operations"),
+           "shards": rows}
+    e_pad, m_pad = T.padded_shape(E, M)
+    out["padded"] = [e_pad, m_pad]
+    log(f"  [{label}] [{E}, {M}] padded [{e_pad}, {m_pad}]: {iters} "
+        f"iterations, {bf} sweeps, {gu} "
+        f"global updates; one device {one_s:.3f} s with the kernels "
+        f"({one_reads} host reads), {plain_s:.3f} s plain ({plain_reads}); "
+        + "; ".join(f"k={r['k']} {r['contiguous_s']:.3f} s contiguous, "
+                    f"{r['strided_s']:.3f} s strided"
+                    for r in rows)
+        + f"; bound {bound_ms:.4f} ms; every contiguous field bit-equal")
+    return out
+
+
+def sharded_phase(wide) -> dict:
+    """The sharded solve and tier on the card: the card's own mesh (one
+    device: ``make_solver_mesh(2)`` is the one-device solve, and the tier
+    gate finds no mesh), then the contended cluster (``_contended``) with
+    the tier off (``POSEIDON_COARSE_FUSED=0``, so its coarse start is the
+    host two-dispatch start the tier also takes) and on with a mesh of
+    TIER_SHARDS logical shards of the card swapped into the planner,
+    contiguous (deltas byte-identical to the tier-off drive's) and
+    strided (the same objective, placed count and certification); then
+    the direct solves (``check_sharded_solves``) on that drive's captured
+    band and on the main path's wave band ``wide``."""
+    from poseidon_tpu_torch.costmodel import get_cost_model
+    from poseidon_tpu_torch.graph import instance as PI
+    from poseidon_tpu_torch.graph.state import ClusterState
+    from poseidon_tpu_torch.ops import transport as T
+    from poseidon_tpu_torch.ops import transport_sharded as TS
+
+    out = {}
+    n_cards = torch.cuda.device_count() if DEVICE.type == "cuda" else 1
+    mesh2 = TS.make_solver_mesh(2, device=DEVICE)
+    inst = _instance(16, 1024, SEED, supply_lo=40, supply_hi=120, cap_lo=1,
+                     cap_hi=6)
+    kw = dict(arc_capacity=inst[4])
+    diff = _solution_diff(TS.solve_transport_sharded(*inst[:4], mesh=mesh2,
+                                                     **kw),
+                          T.solve_transport(*inst[:4], device=DEVICE, **kw))
+    if mesh2.size != min(2, n_cards) or diff:
+        fail(f"make_solver_mesh(2) on this machine: {mesh2}, the solve "
+             f"differs from solve_transport in {diff}")
+    _set_env("POSEIDON_SHARDED_BANDS", "1")
+    own = PI.RoundPlanner(ClusterState(), get_cost_model("cpu_mem"),
+                          device=DEVICE)._sharded_band_mesh(10240)
+    if n_cards == 1 and own is not None:
+        fail(f"the card's own mesh serves the sharded tier: {own}")
+    _set_env("POSEIDON_SHARDED_BANDS", None)
+    log(f"  make_solver_mesh(2) here: {mesh2}, its solve equals "
+        f"solve_transport; the card's own tier mesh at 10240 columns: {own}")
+
+    nodes, tasks = _contended()
+    ckpt = load_cluster("contended-sharded", nodes, tasks)
+    del nodes
+    _set_env("POSEIDON_COARSE_FUSED", "0")
+    log("sharded tier (a): the tier off, coarse fused off")
+    a = drive("shard-off", ckpt, tasks, 1, precompile=False)
+    _check_path("shard-off", a)
+    mesh = TS.SolverMesh([DEVICE] * TIER_SHARDS)
+    _swap(PI.RoundPlanner, "_sharded_tier_mesh", lambda self: mesh)
+    _set_env("POSEIDON_SHARDED_BANDS", "1")
+    calls = []
+    real = TS.solve_transport_sharded
+
+    def record(*args, **kw):
+        sol = real(*args, **kw)
+        calls.append((args, kw, sol.iterations))
+        return sol
+
+    _swap(TS, "solve_transport_sharded", record)
+    runs = {}
+    for name, strided in (("contiguous", "0"), ("strided", "1")):
+        _set_env("POSEIDON_SHARD_STRIDED", strided)
+        log(f"sharded tier ({'b' if strided == '0' else 'c'}): "
+            f"POSEIDON_SHARDED_BANDS=1, {name} shards, {TIER_SHARDS} "
+            f"logical shards of the card")
+        runs[name] = drive(f"shard-{name}", ckpt, tasks, 1,
+                           precompile=False)
+        if runs[name][0]["tiers"]["sharded_bands"] == 0 and \
+                "POSEIDON_SHARDED_MIN_CONTENTION" not in out:
+            # The default gate declined this cluster's band: lower the
+            # contention gate for the tier's drives only, as the
+            # reference's own parity round does.
+            out["POSEIDON_SHARDED_MIN_CONTENTION"] = "1"
+            _set_env("POSEIDON_SHARDED_MIN_CONTENTION", "1")
+            log("  the default gate declined the band; contention gate "
+                "lowered to 1% for the tier's drives")
+            calls.clear()
+            runs[name] = drive(f"shard-{name}", ckpt, tasks, 1,
+                               precompile=False)
+    _swap(TS, "solve_transport_sharded", None)
+    _swap(PI.RoundPlanner, "_sharded_tier_mesh", None)
+    for hatch in ("POSEIDON_SHARDED_BANDS", "POSEIDON_SHARD_STRIDED",
+                  "POSEIDON_SHARDED_MIN_CONTENTION", "POSEIDON_COARSE_FUSED"):
+        _set_env(hatch, None)
+    b, c = runs["contiguous"], runs["strided"]
+    for name, rs in runs.items():
+        w = rs[0]["tiers"]
+        if (w["solve_tier"], w["shard_devices"]) != ("sharded", TIER_SHARDS):
+            fail(f"[shard-{name}] the wave's tier: {w}")
+        # A round's imbalance is read off its sharded solve's lanes, so a
+        # round whose sharded solve iterated 0 times (its start certified)
+        # reports 0; some round of the drive must have read them.
+        if max(r["tiers"]["shard_imbalance"] for r in rs) < 1.0:
+            fail(f"[shard-{name}] no round read the per-shard lanes: "
+                 f"{[r['tiers'] for r in rs]}")
+    _check_path("shard-contiguous", b)
+    _check_path("shard-strided", c)
+    _same_rounds("shard-contiguous", a, b, SHARD_ROUND_COUNTS)
+    # Strided shards may break cost ties in another order, so after the
+    # wave the two drives' clusters (and churn instances) differ: the
+    # wave's objective and placed count are held equal, and every round
+    # certifies (``drive`` fails otherwise).
+    ra, rc = a[0], c[0]
+    if (ra["objective"], ra["placed"]) != (rc["objective"], rc["placed"]):
+        fail(f"[shard-strided] wave: objective {rc['objective']} placed "
+             f"{rc['placed']}, the tier-off drive's {ra['objective']} "
+             f"{ra['placed']}")
+    log("  [shard-contiguous] deltas byte-identical to the tier-off "
+        "drive's; [shard-strided] the wave's objective and placed count "
+        "equal, every round certified")
+    out["launches"] = {f"shard-{name}": _path_launches(rs)
+                       for name, rs in (("off", a), ("contiguous", b),
+                                        ("strided", c))}
+    out["tier"] = {name: [{"kind": r["kind"], "wall_s": r["wall_s"],
+                           "iterations": r["iterations"],
+                           "objective": r["objective"],
+                           "placed": r["placed"], "routes": r["routes"],
+                           "host_reads": r["host_reads"],
+                           "tiers": r["tiers"],
+                           "solve.device": r["stages"].get("solve.device")}
+                          for r in rs]
+                   for name, rs in (("off", a), ("contiguous", b),
+                                    ("strided", c))}
+    # The tier drives' full-width sharded solve that iterated most
+    # (the band's ladder, not a start the sharded path re-checks in 0
+    # iterations).
+    wide_calls = [c for c in calls if c[0][0].shape[1] >= 8192]
+    if not wide_calls:
+        fail("the tier's drives captured no full-width sharded solve")
+    args, kw, _ = max(wide_calls, key=lambda c: c[2])
+    out["direct"] = [check_sharded_solves("contended band", args, kw),
+                     check_sharded_solves("main-path wave band", *wide)]
+    return out
+
+
 # ------------------------------------------------------ resident phase
 
 # The resident phase's warm re-solve sequence: one [128, 10240] instance
@@ -2337,9 +2668,14 @@ def resident_phase() -> dict:
 
 # ---------------------------------------------------------- glue drive
 
+# The glue drive's cluster: the main path's shapes (three node shapes,
+# TASK_SHAPES pod shapes, seed SEED) at a quarter of its size, which keeps
+# the load through the watchers inside the run's time limit.
+GLUE_MACHINES = 2_500
+GLUE_TASKS = 25_000
 GLUE_CHURN_ROUNDS = 3
 # Seconds the watchers get to bring the whole cluster in (the load runs
-# 110k RPCs through the watchers' workers) or a churn round's changes.
+# 27.5k RPCs through the watchers' workers) or a churn round's changes.
 GLUE_LOAD_TIMEOUT_S = 900.0
 GLUE_CHURN_TIMEOUT_S = 300.0
 GLUE_SPANS = ("glue.flush_resubmits", "glue.schedule_rpc", "glue.enact",
@@ -2347,18 +2683,19 @@ GLUE_SPANS = ("glue.flush_resubmits", "glue.schedule_rpc", "glue.enact",
 
 
 def _glue_cluster():
-    """``_population``'s cluster as Kubernetes objects in a FakeKube:
-    the same three node shapes and TASK_SHAPES pod shapes with the same
-    multiplicity, each pod owned by its shape's job."""
+    """``_population``'s cluster cut to GLUE_MACHINES nodes and
+    GLUE_TASKS pods as Kubernetes objects in a FakeKube: the same three
+    node shapes and TASK_SHAPES pod shapes (its first GLUE_TASKS pods),
+    each pod owned by its shape's job."""
     from poseidon_tpu_torch.glue.fake_kube import FakeKube, Node, Pod
 
     kube = FakeKube()
-    for i in range(MACHINES):
+    for i in range(GLUE_MACHINES):
         cpu, ram = MACHINE_SHAPES[i % 3]
         kube.add_node(Node(name=f"bench-m{i}", cpu_capacity=cpu,
                            ram_capacity=ram))
     ec_cpu, ec_ram, ec_of_task = _task_shapes()
-    for i in range(TASKS):
+    for i in range(GLUE_TASKS):
         e = int(ec_of_task[i])
         kube.create_pod(Pod(name=f"bench-p{i}", owner_uid=f"bench-job-{e}",
                             cpu_request=int(ec_cpu[e]),
@@ -2401,8 +2738,9 @@ def _scrape(address):
 
 
 def glue_drive():
-    """The glue process on the main path's cluster at full size: a
-    FakeKube with 10,000 nodes and 100,000 pods, the port's server on the
+    """The glue process on the main path's cluster shapes at a quarter
+    of its size: a FakeKube with GLUE_MACHINES nodes and GLUE_TASKS pods
+    (2,500 and 25,000), the port's server on the
     card, the port's ``Poseidon`` glue (``run_loop=False``) against it
     over 127.0.0.1 with the port's client.  The watchers bring the whole
     cluster in; the server saves its checkpoint before any round; then
@@ -2461,7 +2799,8 @@ def glue_drive():
                 fail(f"[glue] the watchers did not bring the cluster in "
                      f"within {GLUE_LOAD_TIMEOUT_S:.0f} s")
             load_s = time.perf_counter() - t0
-            if (len(st.machines), len(st.tasks)) != (MACHINES, TASKS):
+            if (len(st.machines), len(st.tasks)) != (GLUE_MACHINES,
+                                                     GLUE_TASKS):
                 fail(f"[glue] the server holds {len(st.machines)} machines,"
                      f" {len(st.tasks)} pods after the load")
             t1 = time.perf_counter()
@@ -2470,7 +2809,8 @@ def glue_drive():
             # The precompile at the loaded cluster's machine bucket, as
             # the drive harness runs it once the fleet registered.
             keys = srv.servicer.ensure_precompiled()
-            log(f"  [glue] watchers brought {MACHINES} nodes, {TASKS} pods "
+            log(f"  [glue] watchers brought {GLUE_MACHINES} nodes, "
+                f"{GLUE_TASKS} pods "
                 f"in over gRPC in {load_s:.1f} s; checkpoint saved in "
                 f"{t2 - t1:.1f} s; precompile {keys} solve keys in "
                 f"{time.perf_counter() - t2:.1f} s")
@@ -3364,6 +3704,7 @@ def main(argv) -> int:
     # The kernels at the main path's own wave shapes (after the path's
     # launches were read, so these comparisons are not counted).
     cases = main_path_cases(capture)
+    wide = _wide_operands(capture)
     del capture
     if "fused" in cases:
         log("kernels: B1 at the main path's wave shape")
@@ -3377,11 +3718,16 @@ def main(argv) -> int:
     np.savez(SEAM_FILE, **cases["disagg"][1])
     log("kernels: the disaggregation at the main path's seam")
     disagg += check_coarse_disaggregate([cases["disagg"]])
+    log(f"sharded solve and tier: {SHARD_COUNTS} logical shards of the card")
+    sharded = sharded_phase(wide)
+    del wide
+    launches.update(sharded.pop("launches"))
+    log("sharded phase: " + json.dumps({"card": info["smi"], **sharded}))
     log("resident operand cache: a warm re-solve sequence at [128, 10240], "
         "the cache on and off")
     resident = resident_phase()
     log("glue drive: FakeKube -> watchers -> client -> server, "
-        f"{MACHINES} nodes / {TASKS} pods")
+        f"{GLUE_MACHINES} nodes / {GLUE_TASKS} pods")
     glue = glue_drive()
     launches["glue"] = _path_launches(glue["rounds"])
     launches["glue-restored"] = _path_launches(glue["restored"])

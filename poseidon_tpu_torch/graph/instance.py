@@ -25,9 +25,11 @@ one-program coarse start and the streaming engine's branches
 (``POSEIDON_STREAMING``: the admission cut, the plane cache's ingest
 hints and the cross-round speculative cost build), the opt-in chained
 two-band wave (``POSEIDON_CHAINED``, ops/transport_chained.py) and the
-host ``ssp`` solver.  The worker threads of the pipeline and the
-assignment do host numpy only; every device solve runs on the calling
-thread.  Left out: the sharded tier.
+host ``ssp`` solver, and the mesh-sharded solve
+(ops/transport_sharded.py): every band's with ``solver_devices > 1``,
+or, under ``POSEIDON_SHARDED_BANDS``, the wide contended bands' as the
+``sharded`` tier.  The worker threads of the pipeline and the assignment
+do host numpy only; every device solve runs on the calling thread.
 """
 
 from __future__ import annotations
@@ -167,14 +169,17 @@ class RoundMetrics:
     telem_gu_firings: int = 0
     telem_decay_half_life: float = 0.0
     telem_iters_to_90: int = 0
-    # Mesh-sharded band tier (the reference's POSEIDON_SHARDED_BANDS):
-    # the port has no sharded tier yet, so these stay 0 and ride the
-    # wire only to keep its key set the reference's.
+    # Mesh-sharded band tier (POSEIDON_SHARDED_BANDS): bands this round
+    # served by the sharded solve, the mesh size they ran on, and the
+    # max/mean per-shard work ratio read off the dominant sharded curve's
+    # per-shard telemetry lanes (1.0 = balanced; 0.0 when nothing
+    # sharded solved or telemetry was off).
     sharded_bands: int = 0
     shard_devices: int = 0
     shard_imbalance: float = 0.0
     # The worst band's tier: "pruned" (shortlist + full-plane
-    # certificate), "dense", "host_greedy" (uncertified last resort),
+    # certificate), "dense", "sharded" (the dense plane split over the
+    # device mesh), "host_greedy" (uncertified last resort),
     # or "quiet"/"none" for skipped/degenerate rounds.
     solve_tier: str = "none"
     # False when a band's solve exhausted its budget even on a cold retry.
@@ -398,6 +403,7 @@ class RoundPlanner:
         pod_affinity: bool = True,
         global_update_every: int = 4,
         flow_solver: str = "auction",
+        solver_devices: int = 1,
         device=None,
     ) -> None:
         if global_update_every < 1:
@@ -410,6 +416,10 @@ class RoundPlanner:
         if flow_solver not in ("auction", "ssp"):
             raise ValueError(f"unknown flow_solver {flow_solver!r}")
         self.flow_solver = flow_solver
+        # solver_devices > 1: every band solves on a machine-axis mesh
+        # (ops/transport_sharded.py), built on first use.
+        self.solver_devices = solver_devices
+        self._mesh = None
         self.state = state
         self.cost_model = cost_model
         self.preemption = preemption
@@ -459,6 +469,14 @@ class RoundPlanner:
         self._cost_cols_rebuilt = 0
         self._pipeline_overlap = 0.0
         self._tier_rank = -1
+        # Sharded band tier (POSEIDON_SHARDED_BANDS): bands the mesh-split
+        # solve served this round, the mesh size they ran on, and the
+        # lazily built tier mesh (None = not yet probed; False = probed,
+        # fewer than 2 devices visible).  Distinct from self._mesh, which
+        # backs the solver_devices > 1 all-bands configuration.
+        self._sharded_bands = 0
+        self._shard_devices = 0
+        self._tier_mesh = None
         # Submission time of the cross-ROUND speculation (streaming round
         # engine): set when this round, on its way out, speculates the
         # next round's first cost build on frozen final usage.  None when
@@ -542,11 +560,13 @@ class RoundPlanner:
     # ---------------------------------------------------------------- solving
 
     def _dispatch_solve(self, costs, supply, capacity, unsched_cost,
-                        prices=None, **kw):
-        """The one solver dispatch of a band: the host ssp oracle, or the
-        selective (column-reduced) wrapper, which falls through to the
-        full solve when the reduction would not shrink the instance or
-        does not certify."""
+                        prices=None, sharded_mesh=None, **kw):
+        """The one solver dispatch (rounds and precompile): the host ssp
+        oracle, the mesh-sharded solve, or the selective (column-reduced)
+        wrapper, which falls through to the full solve when the reduction
+        would not shrink the instance or does not certify.
+        ``sharded_mesh`` routes a single band through the sharded solve
+        (the sharded tier's gate passes its mesh here)."""
         if self.flow_solver == "ssp":
             from poseidon_tpu_torch.solver.oracle import transport_solve
 
@@ -561,6 +581,18 @@ class RoundPlanner:
                 objective=obj, gap_bound=0.0, iterations=0,
             )
         kw.setdefault("global_update_every", self.global_update_every)
+        if self.solver_devices > 1 or sharded_mesh is not None:
+            from poseidon_tpu_torch.ops import transport_sharded as TS
+
+            mesh = sharded_mesh
+            if mesh is None:
+                if self._mesh is None:
+                    self._mesh = TS.make_solver_mesh(self.solver_devices,
+                                                     device=self.device)
+                mesh = self._mesh
+            return TS.solve_transport_sharded(
+                costs, supply, capacity, unsched_cost, prices, mesh=mesh,
+                **kw)
         return solve_transport_selective(
             costs, supply, capacity, unsched_cost, prices,
             device=self.device, **kw
@@ -627,6 +659,7 @@ class RoundPlanner:
                         # the full bucket's scale.
                         widths.append((256, scale_full))
                     if (m_bucket >= COARSE_MIN_MACHINES
+                            and self.solver_devices == 1
                             and accel_policy("POSEIDON_COARSE_FUSED", dev)):
                         # The one-program coarse solve: the full width
                         # (scale derived in force mode, as production's
@@ -663,21 +696,41 @@ class RoundPlanner:
                         costs = rng.integers(
                             0, hint + 1, size=(e_bucket, width)
                         ).astype(np.int32)
+                        probe = (
+                            costs, np.ones(e_bucket, dtype=np.int32),
+                            np.ones(width, dtype=np.int32),
+                            np.full(e_bucket, hint, dtype=np.int32),
+                        )
                         # greedy_init is off for every probe: an easy
                         # probe whose greedy start certifies exactly is
                         # answered on the host with no device solve,
                         # skipping the very key this loop exists for.
-                        solve_transport(
-                            costs, np.ones(e_bucket, dtype=np.int32),
-                            np.ones(width, dtype=np.int32),
-                            np.full(e_bucket, hint, dtype=np.int32),
-                            arc_capacity=np.ones(
-                                (e_bucket, width), dtype=np.int32
-                            ),
+                        kw = dict(
+                            arc_capacity=np.ones((e_bucket, width),
+                                                 dtype=np.int32),
                             max_cost_hint=hint, greedy_init=False,
-                            device=dev,
                             **({} if scale is None else {"scale": scale}),
                         )
+                        if self.solver_devices > 1 and (
+                            scale is None
+                            or width == coarse_group_count(m_bucket)
+                        ):
+                            # The shapes the sharded dispatch sees (the
+                            # full bucket and the coarse width): it never
+                            # reduces, so no selective width occurs.
+                            self._dispatch_solve(*probe, **kw)
+                            continue
+                        solve_transport(*probe, device=dev, **kw)
+                        tier_mesh = (None if scale is not None
+                                     else self._sharded_band_mesh(width))
+                        if tier_mesh is not None:
+                            # The sharded tier solves the same full
+                            # bucket on the mesh: its own solve key.
+                            # Both tiers stay reachable (the gate can
+                            # decline), so both keys are probed.
+                            self._dispatch_solve(*probe,
+                                                 sharded_mesh=tier_mesh,
+                                                 **kw)
                     e_bucket *= 2
         return len(keys)
 
@@ -1179,6 +1232,8 @@ class RoundPlanner:
         self._cost_cols_rebuilt = 0
         self._pipeline_overlap = 0.0
         self._tier_rank = -1
+        self._sharded_bands = 0
+        self._shard_devices = 0
         self._telem_curves = []
         entry_min = -1
         phase_sums = None
@@ -1329,6 +1384,10 @@ class RoundPlanner:
             metrics.solve_phase_iters = list(phase_sums)
         if self._tier_rank >= 0:
             metrics.solve_tier = self._TIERS[self._tier_rank]
+        metrics.sharded_bands = self._sharded_bands
+        metrics.shard_devices = (
+            self._shard_devices if self._sharded_bands else 0
+        )
         self._fold_telemetry(metrics)
         return flows_full
 
@@ -1347,6 +1406,11 @@ class RoundPlanner:
             tr.counter_series("conv.active_excess", t0, t1,
                               t.active_excess)
             tr.counter_series("conv.active_rows", t0, t1, t.active_rows)
+            if t.shard_excess is not None:
+                # Per-shard work lanes (mesh-sharded solves).
+                for i, row in enumerate(t.shard_excess):
+                    tr.counter_series(f"conv.shard{i}.excess", t0, t1,
+                                      row)
 
     def _fold_telemetry(self, metrics: RoundMetrics) -> None:
         """Roll the collected curves into the RoundMetrics scalars and
@@ -1365,6 +1429,23 @@ class RoundPlanner:
             t.gu_firings() for _, t in self._telem_curves)
         metrics.telem_decay_half_life = dominant[1].decay_half_life()
         metrics.telem_iters_to_90 = dominant[1].iters_to_drain(0.9)
+        # Shard imbalance: max/mean of the per-shard total excess over the
+        # dominant sharded curve's lanes (1.0 = balanced).  Work follows
+        # excess, so the shard carrying most of the unmet supply is the
+        # round's critical path.
+        sharded = [
+            t for _, t in self._telem_curves if t.shard_excess is not None
+        ]
+        if sharded:
+            dom = max(sharded, key=lambda t: t.samples())
+            totals = np.asarray(dom.shard_excess, dtype=np.float64).sum(
+                axis=1
+            )
+            mean = float(totals.mean())
+            if mean > 0.0:
+                metrics.shard_imbalance = round(
+                    float(totals.max()) / mean, 4
+                )
 
     def _try_chained_wave(self, ecs, mt, bands, remaining, committed_cpu,
                           committed_ram, committed_net, base_slots,
@@ -1387,7 +1468,8 @@ class RoundPlanner:
         if not TCH.chain_gate():
             return None
         if (
-            self.flow_solver == "ssp"
+            self.solver_devices != 1
+            or self.flow_solver == "ssp"
             or type(self.cost_model) is not CpuMemCostModel
             # Zero net capacity means unknown/unlimited (MachineTable
             # contract) and is inert in _column_caps; only real net
@@ -1398,8 +1480,9 @@ class RoundPlanner:
                 and bool(ecs.is_gang.any()))
         ):
             log.debug(
-                "chained wave: config gate declined (solver=%s model=%s "
-                "net=%s gang=%s)", self.flow_solver,
+                "chained wave: config gate declined (devices=%d solver=%s "
+                "model=%s net=%s gang=%s)", self.solver_devices,
+                self.flow_solver,
                 type(self.cost_model).__name__,
                 mt.net_rx_capacity is not None,
                 ecs.is_gang is not None and bool(ecs.is_gang.any()),
@@ -1552,11 +1635,65 @@ class RoundPlanner:
             self._cost_cols_rebuilt += stats["cols_rebuilt"]
 
     # The degraded-mode ladder, best tier first (the worst tier any band
-    # used is the round's).
-    _TIERS = ("pruned", "dense", "host_greedy")
+    # used is the round's).  "sharded" ranks after "dense": it serves the
+    # same certified full plane, split over the device mesh.
+    _TIERS = ("pruned", "dense", "sharded", "host_greedy")
 
     def _note_tier(self, tier: str) -> None:
         self._tier_rank = max(self._tier_rank, self._TIERS.index(tier))
+
+    # ------------------------------------------------- sharded band tier
+
+    def _sharded_tier_mesh(self):
+        """The tier's mesh over every visible device, built on first use
+        and cached (False = probed, fewer than 2 devices).  Returns the
+        mesh or None."""
+        if self._tier_mesh is None:
+            from poseidon_tpu_torch.ops import transport_sharded as TS
+
+            n_dev = len(TS.visible_devices(self.device))
+            self._tier_mesh = (
+                TS.make_solver_mesh(n_dev, device=self.device)
+                if n_dev > 1 else False
+            )
+        return self._tier_mesh or None
+
+    def _sharded_band_mesh(self, n_cols: int):
+        """The mesh the sharded tier would solve an ``n_cols``-wide band
+        on, or None when the tier cannot serve that width (shared by the
+        gate and ``precompile``, so both agree on solve keys).  The width
+        conditions are soundness conditions: the tier fires only where
+        the mesh's column padding is a no-op (same padded shape, so the
+        same scale, warm epsilons and one-device bit-parity)."""
+        if (self.flow_solver != "auction" or self.solver_devices != 1
+                or not hatch_bool("POSEIDON_SHARDED_BANDS")):
+            return None
+        if n_cols < hatch_int("POSEIDON_SHARDED_MIN_COLS"):
+            return None
+        mesh = self._sharded_tier_mesh()
+        if mesh is None:
+            return None
+        _, m_pad = padded_shape(1, n_cols)
+        if m_pad % mesh.size != 0:
+            return None
+        return mesh
+
+    def _sharded_gate(self, ecs_b, cm, col_cap):
+        """Width x contention gate of the sharded tier: it fires on the
+        wide, contended bands the pruned gate declines, and declines
+        where one device is the right tool.  Returns the mesh or None."""
+        E, M = cm.costs.shape
+        mesh = self._sharded_band_mesh(M)
+        if mesh is None:
+            return None
+        # Contention: demand as a percentage of open column capacity; an
+        # under-contended band drains in a few sweeps on one device.
+        supply_sum = int(ecs_b.supply.sum())
+        cap_sum = int(np.asarray(col_cap, dtype=np.int64).sum())
+        if (supply_sum * 100
+                < cap_sum * hatch_int("POSEIDON_SHARDED_MIN_CONTENTION")):
+            return None
+        return mesh
 
     def _solve_host_greedy(self, ecs_b, cm, col_cap, partial_fraction=None):
         """The last rung of the degraded ladder: a deterministic,
@@ -1641,6 +1778,7 @@ class RoundPlanner:
                 eps_start = self._incremental_eps(
                     cm.costs, prev_costs, cm.unsched_cost, prev_unsched,
                     prices, self.cost_model.max_cost(),
+                    mesh_multiple=max(self.solver_devices, 1),
                 )
             if eps_start is None:
                 # A carried frame without a drift-derived epsilon (the EC
@@ -1658,12 +1796,24 @@ class RoundPlanner:
             # eps it is eps-CS at) instead of restarting from the stale
             # warm frame / cold coarse pipeline (gated with the adaptive
             # ladder: POSEIDON_ADAPTIVE_LADDER=0 restores the restart).
+            # Where the pruned gate declines because the band is wide and
+            # contended, the sharded tier takes it: the same full plane and
+            # warm state (its gate keeps the mesh's column padding a
+            # no-op, so the drift epsilon stays valid), split over the
+            # mesh.
+            shard_mesh = self._sharded_gate(ecs_b, cm, col_cap)
             out = self._solve_plane(
                 ecs_b, cm.costs, col_cap, cm.arc_capacity,
                 cm.unsched_cost, carry_box.get("warm", warm_state),
                 warm_eps_exact="warm" in carry_box,
+                sharded_mesh=shard_mesh,
             )
-            tier = "dense"
+            if shard_mesh is not None:
+                tier = "sharded"
+                self._sharded_bands += 1
+                self._shard_devices = int(shard_mesh.size)
+            else:
+                tier = "dense"
         sol, effective_costs = out
         if sol.gap_bound == float("inf"):
             self._hidden_iters += sol.iterations
@@ -1703,7 +1853,8 @@ class RoundPlanner:
         when the gate declines or any stage escalates — the caller then
         runs the dense path with the SAME warm state (or the escalation's
         carry)."""
-        if self.flow_solver != "auction" or not hatch_bool("POSEIDON_PRUNED"):
+        if (self.flow_solver != "auction" or self.solver_devices != 1
+                or not hatch_bool("POSEIDON_PRUNED")):
             return None
         E, M = cm.costs.shape
         scale_full = None
@@ -1905,7 +2056,8 @@ class RoundPlanner:
 
     def _solve_plane(self, ecs_b, costs, col_cap, arc_capacity,
                      unsched_cost, warm_state, scale=None,
-                     gang_repair=True, warm_eps_exact=False):
+                     gang_repair=True, warm_eps_exact=False,
+                     sharded_mesh=None):
         """The per-plane pipeline: coarse warm start on fresh waves, the
         warm/cold dispatch with policy budgets, gang-atomicity repair.
         The pruned path runs the identical pipeline on a column-reduced
@@ -1915,7 +2067,12 @@ class RoundPlanner:
         full-plane-certified solutions (``_try_pruned_band``).
         ``warm_eps_exact`` declares the warm start's epsilon exact (an
         escalation carry), so the dispatch skips the host-cert pass that
-        would recompute it and miss.  Returns ``(sol,
+        would recompute it and miss.  ``sharded_mesh`` (the sharded tier)
+        routes every full-plane dispatch (the warm or cold solve and the
+        gang-repair re-solves) through the sharded solve; the coarse
+        start's [E, 256] aggregate stays on one device (the host
+        two-dispatch start; the one-program start is declined, its full
+        ladder would defeat the split).  Returns ``(sol,
         effective_costs)``; ``effective_costs`` is what the final prices
         are optimal for."""
         prices, flows0, unsched0, eps_start = warm_state
@@ -1936,6 +2093,8 @@ class RoundPlanner:
                 hint, scale=scale,
             )
             if (pre is not None
+                    and self.solver_devices == 1
+                    and sharded_mesh is None
                     and not pre["certified"]
                     and (scale is None
                          or hatch_bool("POSEIDON_COARSE_PINNED"))
@@ -1973,6 +2132,7 @@ class RoundPlanner:
             is_warm = p is not None or f is not None
             return self._dispatch_solve(
                 run_costs, ecs_b.supply, col_cap, unsched_cost, p,
+                sharded_mesh=sharded_mesh,
                 arc_capacity=arc_capacity, init_flows=f,
                 init_unsched=u, eps_start=eps,
                 max_iter_total=2048 if is_warm else 8192,
@@ -2043,6 +2203,7 @@ class RoundPlanner:
         prev_unsched_cost: np.ndarray,
         prices: Optional[np.ndarray],
         max_cost_hint: int = 0,
+        mesh_multiple: int = 1,
     ):
         """Epsilon ladder start from the observed cost change under the
         carried prices.
@@ -2087,9 +2248,12 @@ class RoundPlanner:
         )
         E, M = costs.shape
         # Reproduce the solver's scale derivation exactly (it pads rows to
-        # a power of two, columns to a quarter-octave bucket, and
-        # quantizes the cost bound; _host_validate / padded_shape).
+        # a power of two, columns to a quarter-octave bucket, rounded up to
+        # a mesh multiple on the sharded path, and quantizes the cost
+        # bound; _host_validate / padded_shape / transport_sharded).
         e_pad, m_pad = padded_shape(E, M)
+        if mesh_multiple > 1:
+            m_pad = -(-m_pad // mesh_multiple) * mesh_multiple
         finite_max = int(costs[~now_inadm].max()) if (~now_inadm).any() else 0
         max_raw = max(finite_max, int(unsched_cost.max(initial=0)),
                       max_cost_hint, 1)

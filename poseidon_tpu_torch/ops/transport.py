@@ -188,6 +188,9 @@ class SolveTelemetry:
     saturated: np.ndarray = None  # type: ignore[assignment]
     total_iters: int = 0
     cap: int = 0
+    # Per-shard machine-side active excess [S, n] (mesh-sharded solves
+    # only, ``transport_sharded``): the per-shard work series.
+    shard_excess: Optional[np.ndarray] = None
 
     def samples(self) -> int:
         return int(self.iters.size)
@@ -236,7 +239,7 @@ class SolveTelemetry:
             idx = np.arange(0, n, stride)
             if idx[-1] != n - 1:
                 idx = np.append(idx, n - 1)
-        return {
+        d = {
             "samples": n,
             "total_iters": int(self.total_iters),
             "cap": int(self.cap),
@@ -252,12 +255,20 @@ class SolveTelemetry:
             "active_cols": [int(v) for v in self.active_cols[idx]],
             "eps": [int(v) for v in self.eps[idx]],
         }
+        if self.shard_excess is not None:
+            d["shard_excess"] = [
+                [int(v) for v in row[idx]] for row in self.shard_excess
+            ]
+        return d
 
 
-def decode_telemetry(ring, total_iters: int) -> Optional[SolveTelemetry]:
+def decode_telemetry(ring, total_iters: int,
+                     telem_shards: int = 0) -> Optional[SolveTelemetry]:
     """Host-side decode of a read ring (``None`` when the ring is empty
     or no iteration ran).  With ``total_iters > cap`` the ring wrapped and
-    the oldest live sample sits at column ``total_iters % cap``."""
+    the oldest live sample sits at column ``total_iters % cap``.  A
+    sharded solve's ring carries ``telem_shards`` more rows after the
+    shared ones, one per shard: its machine columns' active excess."""
     ring = np.asarray(ring)
     if ring.size == 0 or ring.shape[1] == 0:
         return None
@@ -269,6 +280,9 @@ def decode_telemetry(ring, total_iters: int) -> Optional[SolveTelemetry]:
         idx = np.arange(total_iters)
     else:
         idx = (np.arange(cap) + total_iters % cap) % cap
+    shard = None
+    if telem_shards > 1 and ring.shape[0] >= TELEM_ROWS + telem_shards:
+        shard = ring[TELEM_ROWS:TELEM_ROWS + telem_shards][:, idx]
     return SolveTelemetry(
         iters=ring[_TR_ITER, idx],
         active_excess=ring[_TR_EXCESS, idx],
@@ -280,6 +294,7 @@ def decode_telemetry(ring, total_iters: int) -> Optional[SolveTelemetry]:
         saturated=ring[_TR_SAT, idx],
         total_iters=total_iters,
         cap=cap,
+        shard_excess=shard,
     )
 
 
@@ -334,6 +349,16 @@ def _host_read(t: torch.Tensor) -> np.ndarray:
     finiteness and int32 headroom."""
     _Telemetry.host_reads += 1
     out = t.cpu().numpy()
+    _ledger.maybe_validate_fetched(out, site="host_read")
+    return out
+
+
+def _host_read_blocks(blocks, axis: int) -> np.ndarray:
+    """One counted read of a tensor held in blocks, possibly on several
+    devices (a sharded solve's flow matrix), joined along ``axis`` on the
+    host: the sharded path's one batched fetch, as ``_host_read``."""
+    _Telemetry.host_reads += 1
+    out = np.concatenate([b.cpu().numpy() for b in blocks], axis=axis)
     _ledger.maybe_validate_fetched(out, site="host_read")
     return out
 
@@ -504,16 +529,19 @@ def _telem_write(ring, st, base: int, eps: int) -> None:
     ``st`` into column ``(base + iterations so far) % cap`` of ``ring``,
     in place and with no host read, when ``st`` says it is active: the
     plain version of the kernels' ring write.  The global-update rows are
-    written 0; ``_global_update`` sets them when the update runs."""
+    written 0; ``_global_update`` sets them when the update runs.  A ring
+    with rows past ``TELEM_ROWS`` (a sharded solve's per-shard lanes)
+    takes them from the status entries past ``STATUS_INTS``."""
     it = st[_ST_ITERS:_ST_ITERS + 1] + base
     col = torch.remainder(it, ring.shape[1]).long()
     zero = torch.zeros(1, dtype=I32, device=ring.device)
+    extra = ring.shape[0] - TELEM_ROWS
     vals = torch.cat([
         it, st[_ST_EXCESS:_ST_EXCESS + 1], st[_ST_ROWS:_ST_ROWS + 1],
         st[_ST_COLS:_ST_COLS + 1],
         torch.full((1,), eps, dtype=I32, device=ring.device), zero, zero,
         st[_ST_SAT:_ST_SAT + 1],
-    ])
+    ] + ([st[STATUS_INTS:STATUS_INTS + extra]] if extra else []))
     old = ring.index_select(1, col).reshape(-1)
     active = st[_ST_ACTIVE:_ST_ACTIVE + 1] > 0
     ring.index_copy_(1, col, torch.where(active, vals, old)[:, None])
@@ -696,10 +724,35 @@ def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
     return F_new, Ffb_new, Fmt_new, pe, pm, pt, exc_e, exc_m, exc_t, st
 
 
+def _phase_enter(state, eps: int, *, ops: dict, refine: bool):
+    """A phase's entry: refine the carried flows to ``eps`` (restore
+    eps-optimality with minimal disturbance to them) when ``refine``,
+    then the excesses and the entering status.  Returns ``(state, exc_e,
+    exc_m, exc_t, st)``."""
+    F, Ffb, Fmt, pe, pm, pt = state
+    C, U, Uem, supply, cap, adm, total = (
+        ops["C"], ops["U"], ops["Uem"], ops["supply"], ops["cap"],
+        ops["adm"], ops["total"],
+    )
+    if refine:
+        def refine_to(rc, flow, hi):
+            return torch.where(rc < -eps, hi,
+                               torch.where(rc > eps, 0, flow))
+
+        rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
+        F = refine_to(rc_em, F, Uem)
+        Ffb = refine_to(U + pe - pt, Ffb, supply)
+        Fmt = refine_to(pm - pt, Fmt, cap)
+    exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply, total=total)
+    st = _phase_status(exc_e, exc_m, exc_t,
+                       torch.zeros(1, dtype=I32, device=F.device))
+    return (F, Ffb, Fmt, pe, pm, pt), exc_e, exc_m, exc_t, st
+
+
 def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
               sweeps, total_iters: int, max_iter: int, max_iter_total: int,
               global_every: int, bf_max: int, adaptive: int, unroll: int,
-              stage: str, ring=None):
+              stage: str, ring=None, enter=_phase_enter):
     """One epsilon phase: refine the carried flows to the new eps, then
     synchronous push/relabel until every excess is zero.
 
@@ -719,33 +772,23 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
     entering state's by ``iterate``, and the fired bit and sweeps by
     ``global_update``, whose iteration the host knows exactly, since it
     reads the status before any update.  Returns the new state and the
-    phase's iterations.
+    phase's iterations.  ``enter`` is the phase's entry
+    (``_phase_enter`` or a sharded solve's); the state, the operands and
+    the hooks may be any layout the three hooks agree on, so long as the
+    status and ``sweeps`` are tensors on one device.
     """
-    F, Ffb, Fmt, pe, pm, pt = state
-    dev = F.device
+    dev = sweeps.device
     C, U, Uem, supply, cap, adm, total = (
         ops["C"], ops["U"], ops["Uem"], ops["supply"], ops["cap"],
         ops["adm"], ops["total"],
     )
-    # Refinement: restore eps-optimality at the new eps with minimal
-    # disturbance to the carried flows.  It must not fire once the
-    # cross-phase budget is (nearly) spent: nothing would be left to
-    # repair the excesses it creates.
+    # The refinement must not fire once the cross-phase budget is
+    # (nearly) spent: nothing would be left to repair the excesses it
+    # creates.
     with _loop_stage(f"{stage}.other", dev):
-        if total_iters + 64 < max_iter_total:
-            def refine(rc, flow, hi):
-                return torch.where(rc < -eps, hi,
-                                   torch.where(rc > eps, 0, flow))
-
-            rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
-            F = refine(rc_em, F, Uem)
-            Ffb = refine(U + pe - pt, Ffb, supply)
-            Fmt = refine(pm - pt, Fmt, cap)
-
-        exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply,
-                                        total=total)
-        st = _phase_status(exc_e, exc_m, exc_t,
-                           torch.zeros(1, dtype=I32, device=dev))
+        state, exc_e, exc_m, exc_t, st = enter(
+            state, eps, ops=ops, refine=total_iters + 64 < max_iter_total)
+    F, Ffb, Fmt, pe, pm, pt = state
 
     def budget_ok(i):
         return i < max_iter and total_iters + i < max_iter_total

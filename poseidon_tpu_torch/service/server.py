@@ -46,6 +46,7 @@ class FirmamentServicer:
         planner_kw = dict(
             gang_scheduling=self.config.gang_scheduling,
             pod_affinity=self.config.pod_affinity,
+            solver_devices=self.config.solver_devices,
             flow_solver=self.config.flow_solver,
         )
         state = planner = None

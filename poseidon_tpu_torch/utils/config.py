@@ -89,8 +89,10 @@ class FirmamentTPUConfig:
     # wholesale (gang repair re-solves / affinity cost terms).
     gang_scheduling: bool = True
     pod_affinity: bool = True
-    # Devices the solve's machine axis is split over; the port solves on
-    # one.
+    # Devices the solve's machine axis is split over (> 1: every band
+    # solves on a mesh of the first solver_devices visible devices,
+    # ops/transport_sharded.py; a mesh of one device is the one-device
+    # solve).
     solver_devices: int = 1
     # When set, each Schedule() round is captured with torch.profiler
     # into this directory (obs/profile.py: <dir>/round_<n>/trace.json).
@@ -111,10 +113,10 @@ class FirmamentTPUConfig:
             raise ValueError(
                 f"flow_solver {self.flow_solver!r}: the port has the "
                 "'auction' and 'ssp' solvers")
-        if self.solver_devices != 1:
+        if self.solver_devices < 1:
             raise ValueError(
-                f"solver_devices {self.solver_devices}: the port solves on "
-                "one device")
+                f"solver_devices {self.solver_devices}: a mesh needs at "
+                "least one device")
 
 
 def _str2bool(s: str) -> bool:

@@ -107,6 +107,21 @@ HATCHES: Tuple[Hatch, ...] = (
     Hatch("POSEIDON_CERT_CACHE", "bool_on", "1",
           "Reduced-plane excluded-column certificate cache fed from "
           "the delta-plane ledger"),
+    # --------------------------------------------------------- sharded bands
+    Hatch("POSEIDON_SHARDED_BANDS", "bool_off", "0",
+          "Mesh-sharded band tier: split wide contended bands (where "
+          "the pruned gate declines) over the visible device mesh"),
+    Hatch("POSEIDON_SHARDED_MIN_COLS", "int", "8192",
+          "Sharded-band gate: minimum machine columns before a band "
+          "shards (quarter-octave buckets at this width keep the "
+          "mesh's column padding a no-op)"),
+    Hatch("POSEIDON_SHARDED_MIN_CONTENTION", "int", "50",
+          "Sharded-band gate: minimum contention in percent (supply "
+          "as a share of open column capacity) before a band shards"),
+    Hatch("POSEIDON_SHARD_STRIDED", "bool_on", "1",
+          "Strided (round-robin) column-to-shard assignment in a "
+          "sharded solve; 0 gives contiguous blocks (and flows "
+          "bit-identical to the one-device solve)"),
 
     Hatch("POSEIDON_COST_DELTA", "bool_on", "1",
           "Delta-maintained cost planes (costmodel/delta.py); 0 forces "

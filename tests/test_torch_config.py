@@ -1,10 +1,10 @@
 """The port's service configuration against the JAX package's.
 
 The deploy profile loads to the same values in both packages, and a value
-the port cannot honour yet (more than one device) raises instead of being
-dropped; the values it has come to honour (the ``ssp`` solver, a profiler
-directory) load as the reference loads them, and a metrics endpoint is
-honoured.
+the port cannot honour (an unknown solver, a mesh of no device) raises
+instead of being dropped; the values it has come to honour (the ``ssp``
+solver, a profiler directory, more than one solver device) load as the
+reference loads them, and a metrics endpoint is honoured.
 """
 
 from pathlib import Path
@@ -40,7 +40,7 @@ def test_deploy_profile_loads_like_reference():
 
 
 # Values the port once refused and now honours, as the reference does.
-HONOURED = ("flow_solver", "profile_dir")
+HONOURED = ("flow_solver", "profile_dir", "solver_devices")
 
 
 @pytest.mark.parametrize("line,key", [
@@ -50,14 +50,16 @@ HONOURED = ("flow_solver", "profile_dir")
 ])
 def test_unsupported_values_raise(tmp_path, line, key):
     """A value the port cannot honour raises; one it honours since the
-    ssp oracle and the profiler bridge loads as the reference's does."""
+    ssp oracle, the profiler bridge and the sharded solve loads as the
+    reference's does."""
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(PROFILE.read_text() + line + "\n")
     argv = ["--config-file", str(cfg)]
     if key in HONOURED:
         t = load_config(FirmamentTPUConfig, argv=argv)
-        assert getattr(t, key) == getattr(j_load_config(JConfig, argv=argv),
-                                          key) == line.split(": ")[1]
+        value = getattr(t, key)
+        assert value == getattr(j_load_config(JConfig, argv=argv), key)
+        assert str(value) == line.split(": ")[1]
         return
     with pytest.raises(ValueError, match=key):
         load_config(FirmamentTPUConfig, argv=argv)
@@ -88,12 +90,16 @@ def test_glue_config_loads_like_reference(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--flow-solver=ssp", "--solver-devices=2"])
 def test_unsupported_flags_raise(flag):
-    """``--solver-devices=2`` raises; ``--flow-solver=ssp`` is honoured
-    now, and an unknown solver raises in its place."""
+    """Both flags are honoured now, and a value still unsupported raises
+    in each one's place: an unknown solver, a mesh of no device."""
     if flag == "--flow-solver=ssp":
         assert load_config(FirmamentTPUConfig, argv=[flag]).flow_solver == \
             "ssp"
         flag = "--flow-solver=cs2"
+    else:
+        assert load_config(FirmamentTPUConfig,
+                           argv=[flag]).solver_devices == 2
+        flag = "--solver-devices=0"
     with pytest.raises(ValueError):
         load_config(FirmamentTPUConfig, argv=[flag])
 
@@ -101,5 +107,5 @@ def test_unsupported_flags_raise(flag):
 def test_servicer_refuses_an_unsupported_config():
     from poseidon_tpu_torch.service.server import FirmamentServicer
 
-    with pytest.raises(ValueError, match="solver_devices"):
-        FirmamentServicer(FirmamentTPUConfig(device="cpu", solver_devices=4))
+    with pytest.raises(ValueError, match="flow_solver"):
+        FirmamentServicer(FirmamentTPUConfig(device="cpu", flow_solver="cs2"))

@@ -64,6 +64,7 @@ assert {"poseidon_tpu_torch.ops.transport_coarse",
         "poseidon_tpu_torch.costmodel.interference",
         "poseidon_tpu_torch.costmodel.device_build",
         "poseidon_tpu_torch.ops.transport_chained",
+        "poseidon_tpu_torch.ops.transport_sharded",
         } <= set(names), names
 import chip_smoke
 bad = [m for m in sys.modules
