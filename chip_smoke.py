@@ -223,6 +223,36 @@ NUM_PHASES = 4
 # NVIDIA H100 80GB HBM3 at 700.00 W; the gate-extreme cases came later.
 # Printed beside each case's time for comparison, never in the record.
 PREVIOUS_B1_MS = {"coarse": 217.697, "churn": 64.346, "contended": 56.311}
+# The global update's and the greedy rows' times under their previous
+# designs (the global update: 320 blocks of 256 threads at [128, 10240], one
+# grid barrier per sweep plus two; the greedy rows: one block walking the
+# rows with three __syncthreads each): the means of the two turns of
+# ``compare_trees.py`` on a tree of that design, in the same call as the
+# new kernels' turns, on NVIDIA H100 80GB HBM3 at 700.00 W.  Printed
+# beside each case's time, never in the record.
+PREVIOUS_GU_MS = {
+    "cold phase 1 bf_max 64 (applied)": 0.0804,
+    "cold phase 0 bf_max 64 (refused)": 0.0796,
+    "cold phase 0 bf_max 0 (unconverged)": 0.0444,
+    "cold phase 1 bf_max 0 (unconverged)": 0.0454,
+    "cold phase 0 at eps 2^27 bf_max 64 (refused)": 0.0794,
+    "cold phase 0 at eps 2^27 bf_max 0 (unconverged)": 0.0444,
+    "edge phase 1 bf_max 64 (applied)": 0.1153,
+    "edge phase 0 bf_max 64 (refused)": 0.1154,
+    "edge phase 0 bf_max 0 (unconverged)": 0.0655,
+    "edge phase 1 bf_max 0 (unconverged)": 0.0655,
+    "edge phase 0 at eps 2^27 bf_max 64 (refused)": 0.1150,
+    "edge phase 0 at eps 2^27 bf_max 0 (unconverged)": 0.0652,
+    "wide phase 1 bf_max 64 (applied)": 0.1975,
+    "wide phase 0 bf_max 64 (refused)": 0.1971,
+    "wide phase 0 bf_max 0 (unconverged)": 0.1209,
+    "wide phase 1 bf_max 0 (unconverged)": 0.1219,
+    "wide phase 0 at eps 2^27 bf_max 64 (refused)": 0.1962,
+    "wide phase 0 at eps 2^27 bf_max 0 (unconverged)": 0.1211,
+}
+PREVIOUS_GREEDY_MS = {"seeded [128, 256]": 0.1032, "seeded [32, 128]": 0.0259,
+                      "ties [32, 256]": 0.0273,
+                      "capacity out mid-row [32, 256]": 0.0274}
 DEVICE = torch.device("cuda")
 
 
@@ -308,7 +338,8 @@ def check_smem() -> None:
 
 
 # One block streaming a buffer from L2 (16-byte loads that bypass L1):
-# the rate one SM can read L2 at, which floors a one-block kernel.
+# the rate one SM can read L2 at, which floors a one-block kernel; and an
+# empty kernel, whose launch floors any kernel.
 _L2_PROBE_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void __launch_bounds__(1024, 1)
@@ -329,27 +360,59 @@ extern "C" int l2_probe(const void* src, long n4, int reps, int* out,
                                                   reps, out);
   return (int)cudaGetLastError();
 }
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 """
+_PROBES = []
+
+
+def _probe_lib():
+    """The probes' library (the L2 stream and the empty kernel), built
+    once per process."""
+    import ctypes
+
+    from poseidon_tpu_torch.ops import _kernels
+
+    if not _PROBES:
+        out_dir = _kernels.build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src = out_dir / "l2_probe.cu"
+        src.write_text(_L2_PROBE_SRC)
+        so = out_dir / "l2_probe.so"
+        subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+                        "-o", str(so), str(src)], check=True, timeout=300)
+        lib = ctypes.CDLL(str(so))
+        lib.l2_probe.argtypes = [ctypes.c_void_p, ctypes.c_long,
+                                 ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+        lib.empty_launch.argtypes = [ctypes.c_void_p]
+        lib.l2_probe.restype = lib.empty_launch.restype = ctypes.c_int
+        _PROBES.append(lib)
+    return _PROBES[0]
+
+
+def empty_launch_ms(reps) -> float:
+    """Device milliseconds of an empty one-warp kernel on the current
+    stream, by ``_time_device`` over ``reps`` launches."""
+    if DEVICE.type != "cuda":
+        return 0.0
+    fn = _probe_lib().empty_launch
+    stream = torch.cuda.current_stream(DEVICE).cuda_stream
+
+    def run():
+        if fn(stream):
+            fail("the empty kernel did not launch")
+
+    return _time_device(run, reps)[0]
 
 
 def one_sm_l2_rate() -> float:
     """Bytes per second that one 1024-thread block reads from L2, over a
     512 KB buffer (C, Uem, F and P at [128, 256])."""
-    import ctypes
-
-    from poseidon_tpu_torch.ops import _kernels
-
-    out_dir = _kernels.build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / "l2_probe.cu"
-    src.write_text(_L2_PROBE_SRC)
-    so = out_dir / "l2_probe.so"
-    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
-                    "-o", str(so), str(src)], check=True, timeout=300)
-    fn = ctypes.CDLL(str(so)).l2_probe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _probe_lib().l2_probe
     nbytes, reps = 512 * 1024, 200
     buf = torch.ones(nbytes // 4, dtype=torch.int32, device=DEVICE)
     out = torch.zeros(1, dtype=torch.int32, device=DEVICE)
@@ -711,8 +774,11 @@ def check_global_update(cases) -> list:
     shape must cover three exits: converged and applied, converged with
     the overflow guard refusing, and unconverged at bf_max (bf_max 0
     stops after one group of sweeps that still moved).  Timed per update
-    on the device; the kernel must make no host read.  Each case records
-    its launch plan (blocks, length tiles in shared memory or not)."""
+    on the device; the kernel must make no host read and run at most one
+    grid barrier per two sweeps.  Each case records its launch plan
+    (blocks, length planes in shared memory or not, columns a block owns)
+    and its barriers; each state, its fixed cost and cost per sweep from
+    its bf_max 0 and bf_max 64 rows."""
     from poseidon_tpu_torch.ops import transport as T
     from poseidon_tpu_torch.ops.transport_tiled import (
         GlobalUpdate,
@@ -722,7 +788,8 @@ def check_global_update(cases) -> list:
     rows = []
     for label, big, vec, scale in cases:
         E, M = big.shape[1:]
-        plan = global_update_plan(E, M) if DEVICE.type == "cuda" else None
+        plan = (list(global_update_plan(E, M)) if DEVICE.type == "cuda"
+                else None)
         ops, states = _mid_solve_states(big, vec, scale)
         gu_ops = {k: ops[k] for k in ("C", "U", "Uem", "supply", "cap",
                                       "adm")}
@@ -731,6 +798,7 @@ def check_global_update(cases) -> list:
             exc = T._excesses(*s[:3], supply=ops["supply"],
                               total=ops["total"])
             full_sweeps = None
+            by_bf = {}
             for bf_max in (64, 0):
                 args = (*s, *exc)
                 acc_k = torch.zeros(1, dtype=torch.int32, device=DEVICE)
@@ -741,6 +809,7 @@ def check_global_update(cases) -> list:
                 out_k = step(*args, acc_k, eps=eps, bf_max=bf_max,
                              ring=ring_k, ring_slot=9, **gu_ops)
                 reads = T.host_read_count() - reads0
+                barriers = step.barriers()  # of this one update
                 out_p = T._global_update(*args, acc_p, eps=eps,
                                          bf_max=bf_max, ring=ring_p,
                                          ring_slot=9, **gu_ops)
@@ -780,22 +849,40 @@ def check_global_update(cases) -> list:
                            f"{bf_max} ({kind})", exit=kind, err=err,
                            sweeps=sweeps, ms=ms, plain_ms=plain_ms,
                            host_ms=host_ms, host_reads=reads, bytes=nbytes,
-                           ops=ops_n, plan=plan)
+                           ops=ops_n, plan=plan, barriers=barriers)
                 rows.append(row)
                 exits.setdefault(kind, row)
+                by_bf[bf_max] = row
                 bound = max(nbytes / HBM_BYTES_PER_S,
                             ops_n / INT32_OPS_PER_S) * 1e3
+                prev = PREVIOUS_GU_MS.get(row["label"])
                 log(f"  global update {row['label']} [{E}, {M}] eps {eps}: "
-                    f"max_abs_err {err}, sweeps {sweeps}, kernel {ms:.4f} "
-                    f"ms ({ms / sweeps:.5f} ms per sweep; host enqueue "
-                    f"{host_ms:.4f} ms, host reads {reads}; plan {plan}), "
-                    f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
-                    f"({ms / bound:.1f}x)")
+                    f"max_abs_err {err}, sweeps {sweeps}, grid barriers "
+                    f"{barriers}, kernel {ms:.4f} ms ({ms / sweeps:.5f} ms "
+                    f"per sweep; host enqueue {host_ms:.4f} ms, host reads "
+                    f"{reads}; plan {plan}), plain {plain_ms:.4f} ms, bound "
+                    f"{bound:.5f} ms ({ms / bound:.1f}x)"
+                    + (f"; previous design {prev:.4f} ms" if prev else ""))
                 if err != 0:
                     fail(f"global update differs from its plain version at "
                          f"{row['label']}")
                 if reads != 0 and DEVICE.type == "cuda":
                     fail(f"global update made {reads} host reads")
+                if DEVICE.type == "cuda" and barriers > max(sweeps // 2, 1):
+                    fail(f"global update ran {barriers} grid barriers for "
+                         f"{sweeps} sweeps at {row['label']}")
+            # The update's fixed cost and its cost per sweep, from the two
+            # cut-offs on the same state.
+            full, cut = by_bf[64], by_bf[0]
+            if full["sweeps"] > cut["sweeps"]:
+                per = (full["ms"] - cut["ms"]) / (full["sweeps"]
+                                                  - cut["sweeps"])
+                fixed = cut["ms"] - per * cut["sweeps"]
+                full["split"] = cut["split"] = {"fixed_ms": fixed,
+                                                "per_sweep_ms": per}
+                log(f"  global update {label} {where} [{E}, {M}]: fixed "
+                    f"{fixed:.4f} ms + {per:.5f} ms per sweep (bf_max 0 and "
+                    f"64 on the same state)")
         missing = {"applied", "refused", "unconverged"} - set(exits)
         if missing:
             fail(f"global update at {label}: exits {sorted(missing)} not "
@@ -812,8 +899,8 @@ def kernel_cases():
     width, cold and warm, at the gate's edge, and ragged (the wave's size
     unpadded, E and M not multiples of B2's tiles).  The global update
     runs on the cold and edge cases' mid-solve states, and on those of a
-    wider band, [256, 16384], past the width at which every tile's block
-    can hold its length tiles in shared memory at once (the other plan)."""
+    wider band, [256, 16384], past the width at which a block holds both
+    length planes of its columns in shared memory (the workspace plan)."""
     fused = []
     for label, (E, M), kw in (
         ("coarse", (128, 256), dict(supply_lo=500, supply_hi=1500,
@@ -1162,11 +1249,15 @@ def check_greedy_seed(cases) -> list:
     loop and the bound: C, the order and F0 read or written once per
     cell, the arc capacities of the admissible cells, the capacity and
     the supply; ``OPS_PER_CELL_GREEDY`` plus a scan's ceil(log2 K) adds
-    per cell."""
+    per cell.  Beside the bound (far below one launch), an empty launch's
+    device time in this process."""
     from poseidon_tpu_torch.ops import transport as T
     from poseidon_tpu_torch.ops import transport_chained as TCH
 
     rows = []
+    # The floor no single launch beats: an empty kernel's device time on
+    # the same stream, timed as the kernel is.
+    floor_ms = empty_launch_ms(20)
     for label, d in cases:
         args = _greedy_args(d)
         a = TCH.greedy_rows(*args)
@@ -1183,12 +1274,14 @@ def check_greedy_seed(cases) -> list:
         short = int(((F0.sum(1) > 0) & (F0.sum(1) < d["supply"])).sum())
         rows.append(dict(shape=[E, K], label=label, err=err, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms, bytes=nbytes,
-                         ops=ops))
+                         ops=ops, floor_ms=floor_ms))
+        prev = PREVIOUS_GREEDY_MS.get(f"{label} {[E, K]}")
         log(f"  greedy rows {label} [{E}, {K}]: max_abs_err {err}, "
             f"{int(F0.sum())} units placed, {short} rows cut short by the "
             f"capacity; kernel {ms:.4f} ms (host {host_ms:.4f} ms a call), "
             f"plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
-            f"({ms / bound:.1f}x)")
+            f"({ms / bound:.1f}x), empty launch {floor_ms:.4f} ms"
+            + (f"; previous design {prev:.4f} ms" if prev else ""))
         if err != 0:
             fail(f"the greedy-rows kernel differs from the plain loop at "
                  f"{label}")
@@ -1504,9 +1597,10 @@ def kernel_phase():
     log("kernels: global-update kernel vs plain global update")
     gu = check_global_update(gu_cases)
     plans = {r["plan"][1] for r in gu}
-    if DEVICE.type == "cuda" and plans != {0, 1}:
+    if DEVICE.type == "cuda" and plans != {1, 2}:
         fail(f"the global-update cases took plans {sorted(plans)}: both "
-             "the shared-memory and the workspace plan must run")
+             "the shared-memory plan (2) and the workspace plan (1, the "
+             "reverse length plane in the workspace) must run")
     log("kernels: coarse disaggregation kernel vs plain scan")
     disagg = check_coarse_disaggregate(disagg_cases())
     log("kernels: the coarse-to-fine program (B5) vs the plain pipeline")
@@ -3478,7 +3572,8 @@ def kernels_record(fused, tiled, gu, disagg, greedy, launches):
                                          "ms_ring_off", "plain_ms",
                                          "one_sm_floor_ms", "host_ms",
                                          "kernels_per_iteration", "sweeps",
-                                         "plan", "solve_ms",
+                                         "plan", "barriers", "split",
+                                         "floor_ms", "solve_ms",
                                          "solve_ms_ring_off", "host_reads",
                                          "pairs")
                        if k in c}
@@ -3500,8 +3595,9 @@ def kernels_record(fused, tiled, gu, disagg, greedy, launches):
         row("global_update",
             "poseidon_tpu_torch/ops/csrc/global_update.cu",
             "poseidon_tpu/ops/transport.py:548",
-            "one cooperative launch: a whole global update", gu,
-            "global_update"),
+            "one cooperative launch: a whole global update (one block per "
+            "SM owning its columns' length planes and distances, two "
+            "Jacobi sweeps per grid barrier)", gu, "global_update"),
         row("coarse_disaggregate",
             "poseidon_tpu_torch/ops/csrc/coarse_disaggregate.cu",
             "poseidon_tpu/ops/transport_coarse.py:226",
@@ -3514,8 +3610,9 @@ def kernels_record(fused, tiled, gu, disagg, greedy, launches):
         row("greedy_seed", "poseidon_tpu_torch/ops/csrc/greedy_seed.cu",
             "poseidon_tpu/ops/transport_chained.py:111",
             "one kernel launch: the chained wave's band-2 greedy rows (one "
-            "block, a block-wide scan per row)", greedy, "greedy_seed",
-            ring=False),
+            "block: producer warps stream the rows' ordered arcs into a "
+            "shared-memory ring, one warp walks the rows with a warp scan "
+            "each)", greedy, "greedy_seed", ring=False),
     ]}
 
 
@@ -3692,8 +3789,10 @@ def main(argv) -> int:
         harness = harness_phases(argv[1].split(","))
         log("harness phases: " + json.dumps(_harness_report(info, harness)))
         return 0
+    t0 = time.perf_counter()
     (fused, tiled, gu, disagg, greedy, program, chained_program,
      l2_rate) = kernel_phase()
+    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     capture = {}
     results, launches, ring_cost, chained = main_path(capture)
     log("kernels: the greedy rows at the chained wave's band-2 instance")

@@ -132,8 +132,8 @@ def lib() -> SimpleNamespace:
             bind("tiled_iteration.cu", "pt_tiled_iteration_kernels", [],
                  ctypes.c_ulonglong)
             bind("global_update.cu", "pt_global_update_launch",
-                 [P] * 20 + [I] * 8 + [P], I)
-            bind("global_update.cu", "pt_global_update_ws_ints", [I, I, I],
+                 [P] * 20 + [I] * 4 + [P] + [I] * 2 + [P], I)
+            bind("global_update.cu", "pt_global_update_ws_ints", [I, P],
                  LL)
             bind("global_update.cu", "pt_global_update_plan", [I, I, P], I)
             bind("coarse_disaggregate.cu", "pt_coarse_disaggregate",

@@ -102,7 +102,8 @@ DECLINED_CONFIG = "declined: solver, cost model, net bounds or gangs"
 DECLINED_GROUPS = "declined: not two band groups"
 DECLINED_WARM = "declined: a usable warm frame"
 
-# The widest coarse instance the greedy kernel takes: one block's threads.
+# The widest coarse instance the greedy kernel takes: 32 ordered columns
+# for each lane of its one consumer warp.
 MAX_GROUPS = 1024
 
 
@@ -162,9 +163,10 @@ def greedy_rows_plain(C, arc_cap, capacity, supply, order):
 
 def greedy_rows(C, arc_cap, capacity, supply, order):
     """``greedy_rows_plain`` as one launch of ``csrc/greedy_seed.cu`` on
-    CUDA tensors (one block, ``cap_left`` in shared memory, a block-wide
-    scan per row), counted in ``LAUNCHES``; on CPU tensors, the plain
-    loop.  Operands are int32; returns ``F0``."""
+    CUDA tensors (one block: producer warps stream the rows' ordered arcs
+    into a shared-memory ring, one warp walks the rows with ``cap_left``
+    in shared memory and a warp scan per row), counted in ``LAUNCHES``;
+    on CPU tensors, the plain loop.  Operands are int32; returns ``F0``."""
     if C.device.type == "cpu":
         return greedy_rows_plain(C, arc_cap, capacity, supply, order)
     E, K = C.shape

@@ -39,9 +39,9 @@ from poseidon_tpu_torch.ops.transport import (
 TILE_W = 512
 TILE_ELEM_BUDGET = 1 << 17
 
-# The global update keeps one [E] distance vector in each block's
-# dynamic shared memory (and its tile of the length planes only where
-# that fits), under the 48 KB a block may use by default.
+# The global update keeps its row vectors (d_e for two sweeps, the
+# fallback arcs' lengths) in each block's shared memory: 128 KB at this
+# many rows, beside which its length planes go to the workspace.
 GU_MAX_ROWS = 8192
 
 
@@ -155,29 +155,38 @@ class TiledIteration:
         return tuple(outs)
 
 
-def global_update_plan(E: int, M: int) -> tuple[int, int]:
+def global_update_plan(E: int, M: int) -> tuple[int, int, int]:
     """The global update's launch plan at [E, M] on the current card:
-    (blocks of the cooperative grid, 1 if each block keeps its one tile
-    of the length planes in shared memory, else 0: the planes live in
-    the workspace and a block walks one or more tiles)."""
-    plan = (ctypes.c_int * 2)()
+    (blocks of the cooperative grid, at most one per SM; where each
+    block keeps the length planes of its columns: 2 both in shared
+    memory, 1 the forward plane there and the reverse one in the
+    workspace, 0 both in the workspace; the machine columns each block
+    owns, whole tiles of 32).  Raises where no co-resident grid can hold
+    the rows."""
+    plan = (ctypes.c_int * 3)()
     _kernels.launch_check(
         _kernels.lib().pt_global_update_plan(E, M, plan), "global_update plan")
-    return plan[0], plan[1]
+    return plan[0], plan[1], plan[2]
 
 
 class GlobalUpdate:
     """The route's global update for one solve: the fixed operands are
-    checked and the workspace (two length planes, the distance buffers,
-    the convergence flags and the grid barrier) is allocated at the first
+    checked and the workspace (the exchange slots, the grid barrier and,
+    in the workspace plan, the length planes) is allocated at the first
     call.  Each call is one cooperative launch that runs the whole
-    Bellman-Ford loop and adds its sweeps to ``sweeps_acc`` on the
-    device; it writes fresh (pe, pm, pt), and with a telemetry ``ring``
-    marks column ``ring_slot`` as fired, with its sweeps."""
+    Bellman-Ford loop, two sweeps per grid barrier, and adds its sweeps to
+    ``sweeps_acc`` on the device; it writes fresh (pe, pm, pt), and with a
+    telemetry ``ring`` marks column ``ring_slot`` as fired, with its
+    sweeps."""
 
     def __init__(self):
         self._ops = _Operands()
-        self._ws = self._bf_max = None
+        self._ws = None
+
+    def barriers(self) -> int:
+        """Grid barriers run by this object's launches so far: the
+        workspace's exchange count (a host read; for diagnostics)."""
+        return 0 if self._ws is None else int(self._ws[0].item())
 
     def __call__(self, F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
                  sweeps_acc, *, C, U, Uem, supply, cap, adm, eps, bf_max,
@@ -189,7 +198,7 @@ class GlobalUpdate:
                 bf_max=bf_max, ring=ring, ring_slot=ring_slot,
             )
         ops = self._ops
-        if ops.bind(C, Uem, U, supply, cap) or self._bf_max != bf_max:
+        if ops.bind(C, Uem, U, supply, cap):
             self._ws = None
         E, M, dev = ops.E, ops.M, ops.dev
         if E > GU_MAX_ROWS:
@@ -206,12 +215,11 @@ class GlobalUpdate:
         acc = ck(sweeps_acc, "sweeps_acc", (1,), dev)
         so = _kernels.lib()
         if self._ws is None:
-            # Zeroed: the grid barrier's two words must start at 0.
+            self._plan = (ctypes.c_int * 3)(*global_update_plan(E, M))
+            # Zeroed: the exchange tags and the grid barrier start at 0.
             self._ws = torch.zeros(
-                so.pt_global_update_ws_ints(ops.E, ops.M, bf_max),
-                dtype=I32, device=ops.dev)
-            self._plan = global_update_plan(E, M)
-            self._bf_max = bf_max
+                so.pt_global_update_ws_ints(E, self._plan),
+                dtype=I32, device=dev)
         outs = [torch.empty(n, dtype=I32, device=dev) for n in (E, M, 1)]
         ring_ptr, ring_cap = ops.ring_args(ring)
         if ring is not None and not 0 <= ring_slot < ring_cap:
@@ -221,7 +229,7 @@ class GlobalUpdate:
         rc = so.pt_global_update_launch(
             *ops.ptrs, *ptrs, *[o.data_ptr() for o in outs], acc,
             self._ws.data_ptr(), ring_ptr, E, M, int(eps), int(bf_max),
-            *self._plan, int(ring_slot), ring_cap,
+            self._plan, int(ring_slot), ring_cap,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _kernels.launch_check(rc, "global_update")

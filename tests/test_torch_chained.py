@@ -533,8 +533,16 @@ def test_greedy_rows_plain_on_cpu_tensors_launches_nothing():
     assert _kernels.LAUNCHES == before
 
 
+# The card's cases add the kernel's edges: K = 1, 33 (a ragged last
+# lane) and 1024 (32 ordered columns a lane), E = 1 and E = 128 (more rows
+# than the ring's stages), with and without ties.
+CARD_CASES = CASES + [(1, 256, 5, False, False), (128, 1, 6, False, True),
+                      (64, 33, 7, True, True), (128, 1024, 8, False, True),
+                      (1, 1024, 9, True, False), (128, 33, 10, True, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,K,seed,ties,tight", CASES)
+@pytest.mark.parametrize("E,K,seed,ties,tight", CARD_CASES)
 def test_greedy_rows_kernel_matches_plain(cuda_device, E, K, seed, ties,
                                           tight):
     C, supply, capacity, arc, _ = _coarse(E, K, seed, ties=ties,

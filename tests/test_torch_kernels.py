@@ -64,6 +64,32 @@ def _mid_solve(E, M, seed, device, *, phase=1, iters=8):
     return ops, state, exc, eps_sched[phase]
 
 
+def _late_column(E, M, device, col=0):
+    """Operands, state, excesses and epsilon of a residual graph whose one
+    path from the deficit row 0 ends at column ``col`` five sweeps out
+    (row 0, column M // 3, row 1, column 2 M // 3, row 2, ``col``; every
+    arc of length 1, every other arc closed): the last value falls alone
+    at sweep 5, in a group where nothing else moves, so the plain update
+    runs 12 sweeps and, cut at bf_max 4, refuses."""
+    C = np.full((E, M), T.INF_COST, np.int32)
+    F = np.zeros((E, M), np.int32)
+    x1, x2 = M // 3, 2 * M // 3
+    for e, m, flow in ((0, x1, 1), (1, x1, 0), (1, x2, 1), (2, x2, 0),
+                       (2, col, 1)):
+        C[e, m], F[e, m] = 0, flow  # flow 1: reverse arc; 0: forward
+    exc_e = np.zeros(E, np.int32)
+    exc_e[0] = -1
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(device)
+
+    zE, zM, z1 = np.zeros(E), np.zeros(M), np.zeros(1)
+    ops = dict(C=t(C), U=t(zE), Uem=t(np.ones((E, M))), supply=t(zE),
+               cap=t(zM), adm=t(C) < T.INF_COST)
+    state = (t(F), t(zE), t(zM), t(zE), t(zM), t(z1))
+    return ops, state, (t(exc_e), t(zM), t(z1)), 1
+
+
 def _global_updates(update, ops, state, exc, eps, bf_max):
     """(pe, pm, pt, sweeps) of one global update through ``update``."""
     acc = torch.zeros(1, dtype=torch.int32, device=state[0].device)
@@ -387,33 +413,61 @@ def test_pruned_plane_solve_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,M", [(100, 10000), (128, 10240), (256, 16384),
-                                 (256, 65536)])
+@pytest.mark.parametrize("E,M", [
+    (100, 10000), (128, 10240), (256, 10240), (256, 16384), (256, 65536),
+    (16, 20), (1, 4096), (24, 4256), (8, 140000)])
 @pytest.mark.parametrize("phase,bf_max", [(0, 64), (1, 64), (1, 0)])
 def test_global_update_matches_plain_on_card(cuda_device, E, M, phase,
                                              bf_max):
     """The global-update kernel against ``_global_update`` on a
     mid-solve state: (pe, pm, pt) and the sweep count bit-equal, with the
     sweeps run to convergence and cut at bf_max = 0; one launch, no host
-    read.  Both launch plans: at the wave's widths every tile's block
-    holds its length tiles in shared memory; wider, the length planes
-    live in the workspace, and at [256, 65536] (2048 tiles, more blocks
-    of 256 threads than an H100's 132 SMs can hold) a block walks
-    several tiles."""
+    read, one grid barrier per two sweeps.  The plan's edges: at most one
+    block per SM, each owning whole 32-column tiles, enough of them for
+    M; both length planes in shared memory up to the wave's widths
+    ([256, 10240] included), the forward one there and the reverse one in
+    the workspace at [256, 16384], both in the workspace at [256, 65536];
+    M below one tile (20), not a multiple of it (10000,
+    20, 4256), a tile count the blocks do not divide evenly (320 tiles
+    and 133 tiles over 132 SMs), one row and 256 rows, and more columns
+    a block than threads (1088 at [8, 140000])."""
     from poseidon_tpu_torch.ops import transport_tiled as TT
 
-    blocks, smem_tiles = TT.global_update_plan(E, M)
-    tiles = -(-M // 32)
-    assert smem_tiles == (M <= 10240)
-    assert (blocks < tiles) == (M == 65536), (blocks, tiles)
+    blocks, planes, cols = TT.global_update_plan(E, M)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert planes == {16384: 1, 65536: 0}.get(M, 2)
+    assert cols % 32 == 0 and blocks <= sms
+    assert (blocks - 1) * cols < M <= blocks * cols, (blocks, cols)
     args = _mid_solve(E, M, 5, cuda_device, phase=phase)
+    step = TT.GlobalUpdate()
     n0, r0 = _kernels.LAUNCHES["global_update"], T.host_read_count()
-    got = _global_updates(TT.GlobalUpdate(), *args, bf_max)
+    got = _global_updates(step, *args, bf_max)
     assert _kernels.LAUNCHES["global_update"] == n0 + 1
     assert T.host_read_count() == r0
     ref = _global_updates(T._global_update, *args, bf_max)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
+    assert step.barriers() == int(ref[3][0]) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf_max", [64, 4, 0])
+def test_global_update_late_column_on_card(cuda_device, bf_max):
+    """A column that falls alone at sweep 5 (``_late_column``), owned
+    by a thread that owns a second column of its block (1088 columns a
+    block at [8, 140000]): its group still counts as moved, so the sweeps
+    (12), the prices and the ring's sweep count match the plain update;
+    cut at bf_max 4 both refuse."""
+    from poseidon_tpu_torch.ops import transport_tiled as TT
+
+    E, M = 8, 140000
+    assert TT.global_update_plan(E, M)[2] > 1024
+    args = _late_column(E, M, cuda_device)
+    got = _global_updates(TT.GlobalUpdate(), *args, bf_max)
+    ref = _global_updates(T._global_update, *args, bf_max)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    assert int(ref[3][0]) == {64: 12, 4: 8, 0: 4}[bf_max]
 
 
 def test_tiled_route_split_by_stage(monkeypatch):
