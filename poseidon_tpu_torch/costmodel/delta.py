@@ -191,8 +191,9 @@ class CostPlaneCache:
             rows, cols = self._hint_rows, self._hint_cols
             if not rows and not cols:
                 return dirty_rows, dirty_cols
+            # ec_ids is a host numpy array: its tolist() reads no device.
             add_r = [
-                i for i, e in enumerate(ecs.ec_ids.tolist())
+                i for i, e in enumerate(ecs.ec_ids.tolist())  # posecheck: ignore[blocking-under-lock]
                 if int(e) in rows
             ]
             add_c = [

@@ -89,7 +89,7 @@ class CostPipeline:
             # cache touch serializes behind the outstanding speculative
             # build (single worker) — an unlocked join would let a fetch
             # read a half-built plane.
-            fut.result()
+            fut.result()  # posecheck: ignore[blocking-under-lock]
         except Exception:  # noqa: BLE001 - speculative; authoritative re-runs
             pass
         self._future = None

@@ -70,13 +70,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _lib_paths() -> dict:
+    """``{source: path}`` of each source's library for these sources and
+    flags (built or not)."""
+    out_dir, tag = build_dir(), _digest()
+    return {src: out_dir / f"{Path(src).stem}_{tag}.so" for src in _SOURCES}
+
+
 def build() -> dict:
     """Build each source into its own shared library, one ``nvcc -shared``
     per source, all started together; returns ``{source: path}``.  Reuses
     an existing build of the same sources and flags."""
     out_dir = build_dir()
-    tag = _digest()
-    libs = {src: out_dir / f"{Path(src).stem}_{tag}.so" for src in _SOURCES}
+    libs = _lib_paths()
     procs = {}
     for src, so in libs.items():
         if so.exists():
@@ -102,8 +108,9 @@ def build() -> dict:
 
 def ptxas_report(source: str) -> str:
     """The ``-Xptxas -v`` output (registers, spills) of the last build of
-    ``source``, e.g. ``"fused_ladder.cu"``."""
-    log = build()[source].with_suffix(".log")
+    ``source``, e.g. ``"fused_ladder.cu"``; empty before the first
+    build."""
+    log = _lib_paths()[source].with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

@@ -472,6 +472,9 @@ def _solve_device_sharded(devices, costs, supply, capacity, unsched_cost,
     coll = _Collectives(devices)
     lead = coll.lead
     E, M = costs.shape
+    if M % k != 0:
+        raise ValueError(f"sharded solve: {M} machine columns are not a "
+                         f"multiple of the mesh's {k} shards")
     B = M // k
     R = range(k)
 

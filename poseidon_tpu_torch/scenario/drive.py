@@ -164,7 +164,7 @@ def drive_scenario(
 
     # Save/restore of the raw env slot, not a semantic read — the
     # engine itself reads the flag through the hatch registry.
-    prev = os.environ.get("POSEIDON_STREAMING")
+    prev = os.environ.get("POSEIDON_STREAMING")  # posecheck: ignore[hatch-registry]
     os.environ["POSEIDON_STREAMING"] = "1" if streaming else "0"
     stack = DriveStack(
         plan.machines, seed=plan.seed, injector=None, max_ecs=max_ecs,

@@ -172,6 +172,10 @@ HATCHES: Tuple[Hatch, ...] = (
           "contract (finite floats, int32 values clear of the rails); "
           "anomalies feed RoundMetrics.numeric_anomalies and any open "
           "check.ledger.NumericsLedger window"),
+    Hatch("POSEIDON_NUMERICS_SCOPES", "str", "",
+          "Comma-separated path fragments overriding the posecheck "
+          "`numerics` rule's default scope (poseidon_tpu_torch/ops/, "
+          "poseidon_tpu_torch/costmodel/, poseidon_tpu_torch/graph/)"),
 
     Hatch("POSEIDON_COMPILE_CACHE_DIR", "str", "",
           "Build directory of the CUDA kernels and the native graph core "
