@@ -22,16 +22,19 @@ from __future__ import annotations
 
 import enum
 import logging
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from operator import attrgetter
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
 from poseidon_tpu_torch.graph.ecs import Selector, ec_signature
+from poseidon_tpu_torch.obs import metrics as _metrics
+from poseidon_tpu_torch.obs import trace as _trace
 from poseidon_tpu_torch.utils.ids import fnv64a
+from poseidon_tpu_torch.utils.locks import TrackedLock
 from poseidon_tpu_torch.graph.residency import (
     MachineLabelIndex,
     ResidentLabelIndex,
@@ -120,6 +123,11 @@ class TaskInfo:
     # update (recomputing the FNV chain for 100k tasks every round would
     # dominate the round's host budget).
     ec_id: int = 0
+    # ``obs.trace.monotime()`` at acceptance: the start of the pod's wait
+    # for a placement, read only while the tracer times
+    # (``apply_placements``).  Never checkpointed or sent.
+    accepted_at: Optional[float] = field(default=None, repr=False,
+                                         compare=False)
 
     def __post_init__(self) -> None:
         self.ec_id = self.compute_ec_id()
@@ -181,6 +189,31 @@ class _KBEntry:
     mem_usage: float = -1.0
 
 
+def _observe_placed(placed: List[TaskInfo], waited: List[int],
+                    cut: int) -> None:
+    """The waits of the pods ``placed`` by round ``cut``'s commit, each
+    after ``waited`` rounds that passed it over: each accepted pod's wait
+    into the pod-wait histogram, and a ``pod.missed_cut`` span for each
+    pod accepted in an earlier round, after that round's snapshot, and
+    placed at its first snapshot since (``submit_round`` below the
+    committing round's, no round passed it over)."""
+    now = _trace.monotime()
+    # A wave places 100,000 pods: one pass per attribute, in C.
+    accepted = np.array(list(map(attrgetter("accepted_at"), placed)),
+                        dtype=np.float64)  # None (a restored pod) -> nan
+    known = ~np.isnan(accepted)
+    if not known.any():
+        return
+    _metrics.observe_pod_waits(now - accepted[known])
+    submitted = np.fromiter(map(attrgetter("submit_round"), placed),
+                            np.int64, len(placed))
+    missed = known & (submitted < cut) & (np.asarray(waited) == 0)
+    for k in np.flatnonzero(missed).tolist():
+        _trace.record("pod.missed_cut", float(accepted[k]), now,
+                      pod=placed[k].uid, submitted_round=int(submitted[k]),
+                      placed_round=cut)
+
+
 @dataclass
 class RoundView:
     """One round's schedulable world in columnar form.
@@ -213,7 +246,7 @@ class ClusterState:
     """
 
     def __init__(self, use_native: bool = True) -> None:
-        self._lock = threading.RLock()
+        self._lock = TrackedLock("graph.ClusterState._lock", reentrant=True)
         self._native = None
         self._machine_key: Dict[str, int] = {}  # uuid -> native key
         if use_native:
@@ -367,6 +400,9 @@ class ClusterState:
     # ------------------------------------------------------------------ tasks
 
     def task_submitted(self, task: TaskInfo) -> TaskReply:
+        # Stamped whatever the tracer's gates: one clock read costs less
+        # than reading them (two environment probes), once a pod.
+        task.accepted_at = _trace.monotime()
         with self._lock:
             existing = self.tasks.get(task.uid)
             if existing is not None:
@@ -713,7 +749,14 @@ class ClusterState:
         res_inc: List[int] = []
         native_uids = []
         native_keys = []
+        # While the tracer times: the pods this commit places that were
+        # pending, and the rounds each had waited, for their waits after
+        # the lock (_observe_placed).  Two lists, not a list of pairs: a
+        # wave's 100,000 tuples would feed the collector.
+        pending = [] if _trace.timing_enabled() else None
+        waited: List[int] = []
         with self._lock:
+            cut = self.round_index
             has_native = self._native is not None
             nkey = self._nkey
             uids_append = native_uids.append
@@ -747,6 +790,9 @@ class ClusterState:
                     task.state = runnable
                     task.wait_rounds += 1
                 else:
+                    if pending is not None and task.state != running:
+                        pending.append(task)
+                        waited.append(task.wait_rounds)
                     task.state = running
                     task.wait_rounds = 0
                 if has_native:
@@ -769,6 +815,8 @@ class ClusterState:
                 # write-back, not watcher ingest — it must not count
                 # against the streaming admission window.
                 self._generation += 1
+        if pending:
+            _observe_placed(pending, waited, cut)
 
     def mirror_wait_rounds(self) -> None:
         """Copy the pending tasks' ``wait_rounds`` into the native core,

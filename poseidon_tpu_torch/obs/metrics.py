@@ -14,8 +14,12 @@ accumulated into ``poseidon_rounds_*_total`` counters and the two
 latency fields into histograms.  ``observe_loop`` mirrors the glue
 ``LoopStats`` + watcher resyncs; the client's retry machinery calls
 ``rpc_attempt``/``rpc_error`` per attempt; ``observe_ledger`` exposes
-the process-wide lock-ledger counters.  Nothing here imports torch: the
-glue process runs this module without it.
+the process-wide lock-ledger counters; the cluster state feeds each
+placed pod's wait (``observe_pod_waits``) while the tracer times.  One
+``gc.callbacks`` hook, installed at import, adds every collector pause
+to ``poseidon_gc_pause_seconds_total{generation}`` and, while the tracer
+records, records it as a ``runtime.gc`` span.  Nothing here imports
+torch: the glue process runs this module without it.
 
 Thread safety: one registry lock for child creation, one lock per
 metric child for updates — the hot paths (a counter bump per RPC) stay
@@ -24,6 +28,7 @@ a dict probe + locked float add.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import threading
@@ -85,8 +90,9 @@ class _Child:
 
     __slots__ = ("lock", "value", "bucket_counts", "sum", "count")
 
-    def __init__(self, buckets: Optional[Tuple[float, ...]] = None) -> None:
-        self.lock = TrackedLock("obs.metrics._Child.lock")
+    def __init__(self, buckets: Optional[Tuple[float, ...]] = None,
+                 lock=None) -> None:
+        self.lock = lock or TrackedLock("obs.metrics._Child.lock")
         self.value = 0.0
         if buckets is not None:
             self.bucket_counts = [0] * (len(buckets) + 1)  # + +Inf
@@ -262,6 +268,23 @@ class Histogram(Metric):
                     break
             else:
                 child.bucket_counts[-1] += 1
+
+    def observe_many(self, values: Sequence[float], *labelvalues) -> None:
+        """``observe`` each of ``values``, under one acquisition of the
+        child's lock (a round's placements come as one batch)."""
+        import numpy as np
+
+        v = np.asarray(values, dtype=np.float64)
+        # Bucket i holds the values in (buckets[i-1], buckets[i]], the
+        # last one those past every bound: observe's own rule.
+        per = np.bincount(np.searchsorted(self.buckets, v, side="left"),
+                          minlength=len(self.buckets) + 1)
+        child = self.labels(*labelvalues)
+        with child.lock:
+            child.sum += float(v.sum())
+            child.count += int(v.size)
+            for i, n in enumerate(per.tolist()):
+                child.bucket_counts[i] += n
 
     def _samples(self) -> Iterable[Tuple[str, str, float]]:
         with self._lock:
@@ -749,6 +772,65 @@ def observe_ledger(registry: Optional[Registry] = None) -> None:
         "Process-wide implicit device->host syncs on CUDA tensors outside "
         "the sanctioned read (check/ledger.py)",
     ).set_total(float(implicit_transfer_count()))
+
+
+def observe_pod_waits(waits: Sequence[float],
+                      registry: Optional[Registry] = None) -> None:
+    """Seconds from each pod's acceptance (``TaskSubmitted``) to the
+    round commit that placed it: the scheduler's pod-scheduling latency,
+    what Kubernetes' own scheduler exports.  Fed by
+    ``ClusterState.apply_placements`` while the tracer times."""
+    reg = registry or _REGISTRY
+    reg.histogram(
+        "poseidon_pod_wait_seconds",
+        "Seconds from a pod's acceptance to the round commit that placed "
+        "it (recorded while the tracer times)",
+    ).observe_many(waits)
+
+
+class _PauseCounter(Counter):
+    """The collector's pause counter.  The hook adds to it from inside a
+    collection, which may start on any thread at any allocation, with
+    any lock held: a tracked lock there would add order edges to the
+    ledger's graph, or block on one its own thread holds.  So its
+    children lock with a plain RLock, and they exist before the first
+    collection (creating one takes the family's tracked lock)."""
+
+    def _new_child(self) -> _Child:
+        return _Child(lock=threading.RLock())
+
+
+class _GcHook:
+    """The one ``gc.callbacks`` hook of the process: each collection's
+    pause, from its "start" to its "stop" call, into the pause counter
+    and, while the tracer records, a ``runtime.gc`` span.  Collections
+    never overlap, so one start time serves every thread."""
+
+    def __init__(self, registry: Registry) -> None:
+        self.t0: Optional[float] = None
+        self.pauses = registry._get_or_create(
+            _PauseCounter, "poseidon_gc_pause_seconds_total",
+            "Seconds the Python collector paused the process, by the "
+            "oldest generation collected", ("generation",))
+        for generation in range(3):
+            self.pauses.labels(generation)
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self.t0 = _trace.monotime()
+            return
+        t0, self.t0 = self.t0, None
+        if t0 is None:
+            return
+        t1 = _trace.monotime()
+        generation = info.get("generation", -1)
+        self.pauses.inc(t1 - t0, generation)
+        _trace.record("runtime.gc", t0, t1, nested=True,
+                      generation=generation)
+
+
+_GC_HOOK = _GcHook(_REGISTRY)
+gc.callbacks.append(_GC_HOOK)
 
 
 def rpc_attempt(rpc: str, registry: Optional[Registry] = None) -> None:

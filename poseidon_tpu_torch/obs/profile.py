@@ -9,7 +9,11 @@ Two narrow seams between the scheduler's own telemetry and torch's:
   capture of CPU and CUDA activity written to ``<dir>/round_<n>`` as a
   Chrome trace, and stamps the artifact path on the ``round`` span
   (``profile_path`` attribute).  Unset (the default), the context
-  manager is a no-op that never imports the profiler.
+  manager is a no-op that never imports the profiler.  The service's
+  ``profile_dir`` captures whole rounds through the same ``capture``.
+  Spans the tracer recorded within a capture's window join its trace,
+  moved onto the profiler's time base through one marker range, so
+  Perfetto shows the program's spans beside its kernels.
 
 - ``observe_device_memory(registry)``: per-CUDA-device memory gauges
   (in use, peak, limit) plus a live-block count, sampled at round
@@ -18,17 +22,19 @@ Two narrow seams between the scheduler's own telemetry and torch's:
   glue-only process must not pay a torch import, and reading a gauge
   must never be what initialises the card.
 
-No clock reads here; capture paths are keyed by round index, never wall
-time.
+No clock reads here but the tracer's (``obs.trace.monotime``); capture
+paths are keyed by round index, never wall time.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
 from contextlib import contextmanager
 
+from poseidon_tpu_torch.obs import trace as _trace
 from poseidon_tpu_torch.utils.hatches import hatch_str
 
 log = logging.getLogger("poseidon_tpu_torch.obs.profile")
@@ -39,6 +45,9 @@ log = logging.getLogger("poseidon_tpu_torch.obs.profile")
 _PROFILER_OK = True
 
 TRACE_FILE = "trace.json"
+# The marker range a capture opens at a known tracer time: where it lies
+# in the profiler's trace aligns the tracer's spans with it.
+SYNC_MARK = "poseidon.trace_sync"
 
 
 def profile_dir() -> str:
@@ -59,7 +68,7 @@ def capture(path: str):
         return
     try:
         import torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
@@ -67,6 +76,9 @@ def capture(path: str):
         os.makedirs(path, exist_ok=True)
         prof = profile(activities=activities)
         prof.__enter__()
+        t_open = _trace.monotime()
+        with record_function(SYNC_MARK):
+            pass
     except Exception as e:  # noqa: BLE001 - degrade, never fail the round
         _PROFILER_OK = False
         log.warning("torch profiler capture unavailable (%s: %s); "
@@ -78,11 +90,45 @@ def capture(path: str):
     finally:
         try:
             prof.__exit__(None, None, None)
-            prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+            t_close = _trace.monotime()
+            out = os.path.join(path, TRACE_FILE)
+            prof.export_chrome_trace(out)
+            add_spans(out, t_open, t_close)
         except Exception as e:  # noqa: BLE001
             _PROFILER_OK = False
             log.warning("torch profiler capture failed to stop (%s: %s); "
                         "disabling for this process", type(e).__name__, e)
+
+
+def add_spans(trace_path: str, t_open: float, t_close: float) -> int:
+    """Add the tracer's spans that began at or after ``t_open`` and ended
+    by ``t_close`` to the profiler's Chrome trace at ``trace_path``,
+    whose ``SYNC_MARK`` range began at tracer time ``t_open``.  Returns
+    the number of spans added (none unless the tracer records)."""
+    tr = _trace.tracer()
+    lo, hi = t_open - tr.epoch, t_close - tr.epoch
+    spans = [s for s in tr.spans()
+             if s["ts"] >= lo and s["ts"] + s["dur"] <= hi]
+    if not spans:
+        return 0
+    with open(trace_path, encoding="utf-8") as fh:
+        obj = json.load(fh)
+    events = obj.setdefault("traceEvents", [])
+    mark = next((e for e in events
+                 if e.get("name") == SYNC_MARK and e.get("ph") == "X"), None)
+    if mark is None:
+        log.warning("profiler trace %s lacks its marker; spans not added",
+                    trace_path)
+        return 0
+    # Microseconds to add to a span's tracer-relative ts.
+    shift = float(mark["ts"]) - lo * 1e6
+    for e in _trace.chrome_trace(spans)["traceEvents"]:
+        if "ts" in e:
+            e["ts"] = e["ts"] + shift
+        events.append(e)
+    with open(trace_path, "w", encoding="utf-8") as fh:
+        json.dump(obj, fh)
+    return len(spans)
 
 
 @contextmanager

@@ -20,6 +20,13 @@ Two independent gates, both read at call time (never at import):
 With neither gate set, ``span()`` returns a shared no-op singleton: the
 disabled path is two dict probes and no allocation beyond the kwargs.
 
+``record(name, t0, t1)`` takes an interval that has already ended, on
+the same gates: a call's wait in the server's queue, a pod's wait from
+its acceptance to its placement, a collector pause, a lock wait.  It
+takes no lock (a collector callback or a lock's own acquire path may
+call it); its intervals join the buffer, the totals and the cap at the
+next span close or read.
+
 Timing uses ``time.perf_counter()`` only (telemetry, never decisions);
 this module is the ONE place in ``obs/`` that reads a clock.  The port's
 ``utils.stagetimer`` is a shim over this tracer, as the reference's is.
@@ -32,6 +39,7 @@ import json
 import os
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from poseidon_tpu_torch.utils.hatches import hatch_bool, hatch_set
@@ -42,8 +50,11 @@ STAGE_ENV = "POSEIDON_STAGE_TIMERS"
 
 # Span-buffer cap: a long-running traced service must not grow without
 # bound.  Past the cap, spans are dropped (counted in ``dropped``) while
-# totals keep accumulating — the aggregate view stays honest.
-MAX_SPANS = 200_000
+# totals keep accumulating — the aggregate view stays honest.  A traced
+# service under 800 task RPCs a second records three spans a call (the
+# call, its queue wait, its reply's encoding): 200,000 a minute and a
+# half.
+MAX_SPANS = 500_000
 # Counter-sample cap (Perfetto counter tracks — the convergence-curve
 # series): a 512-sample curve per band solve adds up fast in a long
 # traced window, so the buffer is bounded like the span one.
@@ -145,13 +156,9 @@ class Span:
                 "attrs": dict(self.attrs),
             }
         with tr._lock:
-            tr._totals[self.name] = tr._totals.get(self.name, 0.0) + dur
-            tr._counts[self.name] = tr._counts.get(self.name, 0) + 1
-            if self._record:
-                if len(tr._spans) < tr.max_spans:
-                    tr._spans.append(rec)
-                else:
-                    tr.dropped += 1
+            if tr._pending:
+                tr._flush_pending()
+            tr._add(self.name, dur, rec if self._record else None)
         return False
 
 
@@ -160,9 +167,13 @@ class Tracer:
 
     def __init__(self, max_spans: int = MAX_SPANS,
                  max_counter_samples: int = MAX_COUNTER_SAMPLES) -> None:
-        self._lock = TrackedLock("obs.Tracer._lock")
+        # Its own waits are not traced: they would measure the tracer.
+        self._lock = TrackedLock("obs.Tracer._lock", trace_waits=False)
         self._tl = threading.local()
         self._spans: List[dict] = []
+        # ``record``'s intervals not yet in the buffer (appended without
+        # the lock; drained under it).
+        self._pending: deque = deque()
         self._counter_samples: List[dict] = []
         self._totals: Dict[str, float] = {}
         self._counts: Dict[str, int] = {}
@@ -178,6 +189,12 @@ class Tracer:
 
     # ------------------------------------------------------------------ gates
 
+    def gated(self) -> bool:
+        """Whether either gate may be on: the disabled fast path's probe,
+        the one a hot caller makes before any other tracer work."""
+        return self.force is not None or hatch_set(TRACE_ENV) \
+            or hatch_set(STAGE_ENV)
+
     def tracing(self) -> bool:
         if self.force is not None:
             return self.force
@@ -192,8 +209,7 @@ class Tracer:
         """``parent`` (a span id) overrides the per-thread stack parent
         — used by worker-thread spans whose logical parent lives on
         another thread's stack."""
-        if self.force is None and not hatch_set(TRACE_ENV) \
-                and not hatch_set(STAGE_ENV):
+        if not self.gated():
             return NULL_SPAN  # the common (fully disabled) fast path
         if self.tracing():
             return Span(self, name, attrs, record=True,
@@ -201,6 +217,63 @@ class Tracer:
         if hatch_bool(STAGE_ENV):
             return Span(self, name, attrs, record=False)
         return NULL_SPAN
+
+    def record(self, name: str, t0: float, t1: float,
+               parent: Optional[int] = None, *, nested: bool = False,
+               **attrs) -> None:
+        """Record the finished interval [t0, t1] (absolute
+        ``perf_counter`` endpoints) under ``name``, on ``span()``'s gates
+        and with its totals, cap and ``dropped`` accounting.
+
+        Takes no lock, so it is safe from a collector callback or from
+        inside a lock's acquire: the interval joins the buffer at the
+        next span close or read.  ``nested`` says the interval lies
+        inside the calling thread's own work (a collector pause, a lock
+        wait) and exports on its lane; otherwise it began elsewhere (a
+        call's wait in a queue, a pod's wait for a round) and exports as
+        an async slice of its own.  ``parent`` is a span id; the calling
+        thread's open span is not taken as one."""
+        if not self.gated():
+            return
+        keep = self.tracing()
+        if not keep and not hatch_bool(STAGE_ENV):
+            return
+        th = threading.current_thread()
+        # Lock-free by design (see above); deque appends are atomic.
+        self._pending.append(  # posecheck: ignore[lock-discipline]
+            (name, t0, t1, parent, attrs, keep, nested, th.ident, th.name))
+
+    def _flush_pending(self) -> None:
+        """Move ``record``'s intervals into the totals and the buffer.
+        Caller holds ``_lock``."""
+        pending = self._pending
+        while pending:
+            (name, t0, t1, parent, attrs, keep, nested, tid,
+             tname) = pending.popleft()
+            rec = None
+            if keep:
+                rec = {"name": name, "ts": t0 - self._epoch, "dur": t1 - t0,
+                       "tid": tid, "tname": tname, "id": next(_ids),
+                       "parent": parent, "attrs": attrs}
+                if not nested:
+                    rec["async"] = True
+            self._add(name, t1 - t0, rec)
+
+    def _add(self, name: str, dur: float, rec: Optional[dict]) -> None:
+        """One finished interval into the totals and, given its record,
+        the buffer or ``dropped``.  Caller holds ``_lock``."""
+        self._totals[name] = self._totals.get(name, 0.0) + dur
+        self._counts[name] = self._counts.get(name, 0) + 1
+        if rec is not None:
+            if len(self._spans) < self.max_spans:
+                self._spans.append(rec)
+            else:
+                self.dropped += 1
+
+    @property
+    def epoch(self) -> float:
+        """The ``perf_counter`` time that recorded ``ts`` count from."""
+        return self._epoch
 
     def current(self):
         """The innermost open recorded span on THIS thread (or the null
@@ -220,6 +293,7 @@ class Tracer:
     def snapshot_totals(self) -> Dict[str, Tuple[float, int]]:
         """{name: (total_seconds, calls)} accumulated since last reset."""
         with self._lock:
+            self._flush_pending()
             return {
                 k: (self._totals[k], self._counts.get(k, 0))
                 for k in self._totals
@@ -227,12 +301,14 @@ class Tracer:
 
     def reset_totals(self) -> None:
         with self._lock:
+            self._flush_pending()
             self._totals.clear()
             self._counts.clear()
 
     def reset(self) -> None:
         """Clear totals AND the recorded span/counter buffers."""
         with self._lock:
+            self._pending.clear()
             self._totals.clear()
             self._counts.clear()
             self._spans.clear()
@@ -241,23 +317,6 @@ class Tracer:
             self.dropped_counters = 0
 
     # ------------------------------------------------------------- counters
-
-    def counter(self, name: str, value, ts: Optional[float] = None) -> None:
-        """Record one counter sample (a Perfetto counter-track point).
-
-        ``ts`` is an absolute ``time.perf_counter()`` timestamp (the
-        caller's own measurement — e.g. a solve window endpoint);
-        defaults to now.  No-op unless span recording is on: counter
-        tracks only make sense next to a span timeline."""
-        if not self.tracing():
-            return
-        t = (ts if ts is not None else time.perf_counter()) - self._epoch
-        rec = {"name": name, "ts": t, "value": float(value)}
-        with self._lock:
-            if len(self._counter_samples) < self.max_counter_samples:
-                self._counter_samples.append(rec)
-            else:
-                self.dropped_counters += 1
 
     def counter_series(self, name: str, t0: float, t1: float,
                        values) -> None:
@@ -303,12 +362,14 @@ class Tracer:
 
     def spans(self) -> List[dict]:
         with self._lock:
+            self._flush_pending()
             return list(self._spans)
 
     def drain_spans(self) -> List[dict]:
         """Return AND clear the recorded spans (the per-round flight-
         recorder window; totals are untouched)."""
         with self._lock:
+            self._flush_pending()
             out = self._spans
             self._spans = []
             return out
@@ -343,9 +404,15 @@ def chrome_trace(spans: List[dict],
     ``"ph": "C"`` counter events — Perfetto renders each distinct name
     as its own counter track under the process, which is how the
     solver's convergence curves land next to the span lanes.
+
+    A ``record``-ed interval that began elsewhere (its span carries
+    ``async``) lowers to an async slice, a ``"b"``/``"e"`` pair keyed by
+    its span id: such intervals overlap one another and the spans of the
+    thread that recorded them, so they cannot nest on its lane.
     """
     pid = os.getpid()
     events: List[dict] = []
+    slices: List[dict] = []
     thread_names: Dict[int, str] = {}
     for s in spans:
         tid = int(s["tid"] or 0)
@@ -354,6 +421,14 @@ def chrome_trace(spans: List[dict],
         args["span_id"] = s["id"]
         if s.get("parent") is not None:
             args["parent_id"] = s["parent"]
+        if s.get("async"):
+            t0 = int(round(s["ts"] * 1e6))
+            t1 = t0 + max(int(round(s["dur"] * 1e6)), 1)
+            for ph, ts in (("b", t0), ("e", t1)):
+                slices.append({"name": s["name"], "cat": "poseidon",
+                               "ph": ph, "id": s["id"], "ts": ts,
+                               "pid": pid, "tid": tid, "args": args})
+            continue
         events.append({
             "name": s["name"],
             "cat": "poseidon",
@@ -387,8 +462,9 @@ def chrome_trace(spans: List[dict],
          "args": {"name": name}}
         for tid, name in sorted(thread_names.items())
     ]
+    slices.sort(key=lambda e: (e["ts"], e["ph"] == "b"))
     return {
-        "traceEvents": meta + events + counter_events,
+        "traceEvents": meta + events + slices + counter_events,
         "displayTimeUnit": "ms",
     }
 
@@ -423,6 +499,7 @@ def validate_chrome_trace(obj: dict) -> List[str]:
     if not isinstance(events, list):
         return ["traceEvents is not a list"]
     lanes: Dict[Tuple[int, int], List[Tuple[int, int, str]]] = {}
+    open_slices: Dict[Tuple[Any, Any], Tuple[int, str]] = {}
     by_span_id: Dict[int, Tuple[int, int, str]] = {}
     linked: List[Tuple[int, int, str, int]] = []
     for i, e in enumerate(events):
@@ -450,6 +527,26 @@ def validate_chrome_trace(obj: dict) -> List[str]:
                     "of numeric series values"
                 )
             continue
+        if ph in ("b", "e"):
+            # Async slices: each "b" closed by one later "e" of the same
+            # category, id and name.
+            key = (e.get("cat"), e.get("id"))
+            ts = e.get("ts")
+            if not isinstance(ts, int) or key[1] is None:
+                problems.append(f"event {i}: async slice needs an id and "
+                                "integer us ts")
+            elif ph == "b":
+                if key in open_slices:
+                    problems.append(f"event {i}: async slice {key} "
+                                    "opened twice")
+                open_slices[key] = (ts, e.get("name", "?"))
+            else:
+                got = open_slices.pop(key, None)
+                if got is None or got[1] != e.get("name", "?") \
+                        or ts < got[0]:
+                    problems.append(f"event {i}: async slice end {key} "
+                                    "without its begin")
+            continue
         if ph != "X":
             problems.append(f"event {i}: unsupported ph {ph!r}")
             continue
@@ -473,6 +570,8 @@ def validate_chrome_trace(obj: dict) -> List[str]:
         pid_arg = args.get("parent_id")
         if isinstance(pid_arg, int):
             linked.append((ts, dur, e.get("name", "?"), pid_arg))
+    for key, (_, name) in sorted(open_slices.items(), key=str):
+        problems.append(f"async slice {name!r} {key} never ends")
     # Explicit parent links (lane-independent): a child must lie inside
     # its parent's interval.  2 us slop — BOTH exported durations are
     # floored at 1 us, so an instant child of an instant parent can
@@ -543,6 +642,12 @@ def span(name: str, parent: Optional[int] = None, **attrs):
     return _TRACER.span(name, parent=parent, **attrs)
 
 
+def record(name: str, t0: float, t1: float, parent: Optional[int] = None,
+           *, nested: bool = False, **attrs) -> None:
+    """Record a finished interval on the process tracer (``Tracer.record``)."""
+    _TRACER.record(name, t0, t1, parent, nested=nested, **attrs)
+
+
 def current():
     return _TRACER.current()
 
@@ -573,10 +678,6 @@ def spans() -> List[dict]:
 
 def drain_spans() -> List[dict]:
     return _TRACER.drain_spans()
-
-
-def counter(name: str, value, ts: Optional[float] = None) -> None:
-    _TRACER.counter(name, value, ts=ts)
 
 
 def counter_series(name: str, t0: float, t1: float, values) -> None:

@@ -27,10 +27,12 @@ from poseidon_tpu_torch.protos.services import (
     FIRMAMENT_METHODS,
     FIRMAMENT_SERVICE,
     generic_handler,
+    stamped,
 )
 from poseidon_tpu_torch.service import converters
 from poseidon_tpu_torch.obs import metrics as obs_metrics
 from poseidon_tpu_torch.obs import profile as obs_profile
+from poseidon_tpu_torch.obs import trace as obs_trace
 from poseidon_tpu_torch.utils.config import FirmamentTPUConfig, load_config
 from poseidon_tpu_torch.utils.locks import TrackedLock
 
@@ -138,6 +140,8 @@ class FirmamentServicer:
                     deltas, metrics = self.planner.schedule_round()
             else:
                 deltas, metrics = self.planner.schedule_round()
+        # Over gRPC the innermost open span here is ``rpc.Schedule``.
+        obs_trace.current().set(round=metrics.round_index)
         log.info(
             "round %d: %d tasks / %d ECs / %d machines -> "
             "%d place %d preempt %d migrate %d unsched; "
@@ -150,21 +154,23 @@ class FirmamentServicer:
             metrics.iterations, metrics.bf_sweeps, metrics.solve_tier,
             metrics.pruned_bands, metrics.cost_delta_hits,
         )
-        # Prometheus feed: every RoundMetrics field (schema-driven via
-        # to_dict) plus the process-wide lock-ledger counters.
-        obs_metrics.observe_round(metrics)
-        obs_metrics.observe_ledger()
-        # Round boundaries are the sampling cadence of the per-device
-        # memory gauges (obs/profile.py: in use / peak / limit per device,
-        # live-block count).
-        obs_profile.observe_device_memory()
+        with obs_trace.span("service.observe"):
+            # Prometheus feed: every RoundMetrics field (schema-driven via
+            # to_dict) plus the process-wide lock-ledger counters.
+            obs_metrics.observe_round(metrics)
+            obs_metrics.observe_ledger()
+            # Round boundaries are the sampling cadence of the per-device
+            # memory gauges (obs/profile.py: in use / peak / limit per
+            # device, live-block count).
+            obs_profile.observe_device_memory()
         every = self.config.checkpoint_every_rounds
         if (
             self.config.checkpoint_path and every > 0
             and metrics.round_index % every == every - 1
         ):
             self.save_checkpoint()
-        return converters.deltas_to_proto(deltas)
+        with obs_trace.span("service.deltas_to_proto"):
+            return converters.deltas_to_proto(deltas)
 
     def save_checkpoint(self) -> None:
         """Write state + warm frames; failures are logged, never fatal."""
@@ -253,6 +259,16 @@ class FirmamentServicer:
         return fpb.HealthCheckResponse(status=fpb.SERVING)
 
 
+class _CallPool(futures.ThreadPoolExecutor):
+    """The server's handler threads.  Each work item grpc submits (one
+    call) carries the time it was submitted, so the handler can record
+    how long the call waited for a thread (``services.stamped``)."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        return super().submit(stamped, time.perf_counter(), fn, args,
+                              kwargs)
+
+
 class FirmamentTPUServer:
     """Owns the grpc.Server; usable as a context manager."""
 
@@ -266,9 +282,7 @@ class FirmamentTPUServer:
         if address is not None:
             self.config.listen_address = address
         self.servicer = FirmamentServicer(config=self.config)
-        self._server = grpc.server(
-            futures.ThreadPoolExecutor(max_workers=max_workers)
-        )
+        self._server = grpc.server(_CallPool(max_workers=max_workers))
         self._server.add_generic_rpc_handlers(
             (generic_handler(FIRMAMENT_SERVICE, FIRMAMENT_METHODS,
                              self.servicer),)

@@ -30,6 +30,9 @@ outside it — the edge graph, being process-wide, still covers them).
 
 Tracking overhead on the uncontended path is one non-blocking inner
 acquire, two ``perf_counter_ns`` reads and a thread-local list append.
+A contended acquire also hands its wait to the span tracer as
+``lock_wait.<name>`` (``obs.trace.record``, which takes no lock; a
+no-op unless the tracer's gates are on).
 ``POSEIDON_LOCK_LEDGER=0`` drops even that: the wrapper degrades to a
 bare delegate (read at lock construction, the one place a per-acquire
 env probe would be too hot).
@@ -166,12 +169,17 @@ class TrackedLock:
 
     __slots__ = (
         "name", "_inner", "_reentrant", "_owner", "_depth", "_tracking",
-        "acquisitions", "contended", "contention_ns", "hold_ns",
+        "_trace_waits", "acquisitions", "contended", "contention_ns",
+        "hold_ns",
     )
 
-    def __init__(self, name: str, *, reentrant: bool = False) -> None:
+    def __init__(self, name: str, *, reentrant: bool = False,
+                 trace_waits: bool = True) -> None:
         self.name = name
         self._reentrant = reentrant
+        # False for the tracer's own lock: its waits would trace the
+        # tracer.
+        self._trace_waits = trace_waits
         self._inner = threading.RLock() if reentrant else threading.Lock()
         self._owner: Optional[int] = None
         self._depth = 0
@@ -213,6 +221,8 @@ class TrackedLock:
             waited = time.perf_counter_ns() - t0
             self.contended += 1
             self.contention_ns += waited
+            if self._trace_waits:
+                _trace_wait(self.name, t0, waited)
         self._owner = me
         self._depth = 1
         self.acquisitions += 1
@@ -260,6 +270,17 @@ class TrackedLock:
 
     def __repr__(self) -> str:
         return f"<TrackedLock {self.name!r} reentrant={self._reentrant}>"
+
+
+def _trace_wait(name: str, t0_ns: int, waited_ns: int) -> None:
+    """A contended acquire's wait as a ``lock_wait.<name>`` interval on
+    the span tracer, looked up rather than imported (``obs/trace.py``
+    imports this module; nothing records before it is loaded)."""
+    tracer = getattr(sys.modules.get("poseidon_tpu_torch.obs.trace"),
+                     "_TRACER", None)
+    if tracer is not None:
+        tracer.record(f"lock_wait.{name}", t0_ns / 1e9,
+                      (t0_ns + waited_ns) / 1e9, nested=True)
 
 
 def tracked_condition(name: str) -> threading.Condition:

@@ -508,6 +508,7 @@ def test_port_suppressions_are_justified():
                 assert context.count("#") >= 2, (path, i + 1)
                 sites.append((path.name, i + 1))
     # One carried over with the copied code (transport.py), two restored
-    # from the reference (pipeline.py, drive.py), three new: delta.py's
-    # host tolist() and the chained wave's two opt-outs.
-    assert len(sites) == 6, sites
+    # from the reference (pipeline.py, drive.py), four new: delta.py's
+    # host tolist(), the chained wave's two opt-outs, and the tracer's
+    # lock-free ``record`` (trace.py), which a collector callback calls.
+    assert len(sites) == 7, sites

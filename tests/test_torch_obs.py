@@ -9,6 +9,7 @@ trace that both validators accept; the round-history ring and the
 import json
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -120,7 +121,8 @@ def _record_spans(T, monkeypatch):
                 sp.set(code="OK", obj=object())
         with tr.span("glue.enact", deltas=3):
             pass
-    tr.counter("telem.excess", 5)
+    t = time.perf_counter()
+    tr.counter_series("telem.excess", t, t, [5])
     return tr
 
 
