@@ -325,6 +325,34 @@ def check_smem() -> None:
     log(f"  B1 shared memory: {TF.ladder_smem_bytes(8)} to "
         f"{TF.ladder_smem_bytes(e // 2)} bytes for E = 8 to {e // 2}, "
         "kernel and mirror agree")
+    # The cluster path: its size a CTA at every shape the gate sends it,
+    # kernel against mirror, and a cluster of each size it takes must fit
+    # the card.
+    from poseidon_tpu_torch.ops import transport as T
+
+    m_pads = sorted({T.bucket_size(n) for n in range(1, 41_000)})
+    routed = {}
+    for e in (8 << k for k in range(10)):
+        for m in m_pads:
+            k = TF.ladder_ctas(e, m) if TF.fits_vmem(e, m) else 1
+            if k == 1:
+                continue
+            c_bytes = so.pt_fused_ladder_cluster_smem_bytes(e, m, k)
+            if c_bytes != TF.cluster_smem_bytes(e, m, k):
+                fail(f"B1 cluster shared memory at [{e}, {m}] over {k} "
+                     f"CTAs: kernel {c_bytes} bytes, mirror "
+                     f"{TF.cluster_smem_bytes(e, m, k)}")
+            routed[(e, m)] = (k, c_bytes)
+    for k in sorted({k for k, _ in routed.values()}):
+        e, m = max((em for em, v in routed.items() if v[0] == k),
+                   key=lambda em: routed[em][1])
+        n = so.pt_fused_ladder_max_clusters(e, m, k)
+        if n < 1:
+            fail(f"no cluster of {k} CTAs fits the card at [{e}, {m}]")
+        log(f"  B1 cluster path: {k} CTAs at "
+            f"{sum(v[0] == k for v in routed.values())} shapes, up to "
+            f"{routed[(e, m)][1]} bytes a CTA at [{e}, {m}] ({n} such "
+            "clusters fit the card); kernel and mirror agree")
     from poseidon_tpu_torch.ops import transport_coarse as TC
 
     top = TC.MAX_BLOCK
@@ -576,13 +604,32 @@ def check_fused(cases, l2_rate) -> list:
     timed beside the previous design's time and the one-SM floor (the
     plane passes' bytes at ``l2_rate``, or the operations at one SM's
     share of the card's int32 rate, whichever is longer).  The bound
-    counts each input read once and each output written once."""
+    counts each input read once and each output written once.  Where the
+    gate sends the shape to the cluster path, the one-SM kernel runs it
+    too: both bit-equal to the plain ladder, both timed, and the cluster
+    path's floor (the operations at its k SMs' share of the int32 rate)
+    beside the one-SM floor."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     rows = []
     for label, big, vec, scale in cases:
+        E, M = big.shape[1:]
+        ctas = TF.ladder_ctas(E, M) if TF.fits_vmem(E, M) else 1
+        one_sm = None
+        if ctas > 1:
+            gate = TF.ladder_ctas
+            TF.ladder_ctas = lambda e, m: 1
+            try:
+                one_sm = _ring_checks(label, big, vec, scale, "fused")
+            finally:
+                TF.ladder_ctas = gate
+        n0 = _kernels_launches("fused_ladder_cluster")
         err, ms, ms_off, reads, Fk, sk = _ring_checks(label, big, vec,
                                                       scale, "fused")
-        E, M = big.shape[1:]
+        if ctas > 1 and _kernels_launches("fused_ladder_cluster") == n0:
+            fail(f"B1 {label}: the gate sent [{E}, {M}] to the cluster "
+                 "path but no cluster launch was counted")
         o = E + E + M + 1
         iters, bf = int(sk[o]), int(sk[o + 1])
         plain_ms = _time_cuda(lambda: _run_route(big, vec, scale, "lax"), 1)
@@ -604,10 +651,31 @@ def check_fused(cases, l2_rate) -> list:
         floor_ops = ops / (INT32_OPS_PER_S / sms) * 1e3
         floor_ms = max(floor_bytes, floor_ops)
         prev = PREVIOUS_B1_MS.get(label)
-        rows.append(dict(shape=[E, M], label=label, err=err, iters=iters,
-                         bf=bf, ms=ms, ms_ring_off=ms_off, plain_ms=plain_ms,
-                         bytes=nbytes, ops=ops, one_sm_floor_ms=floor_ms,
-                         host_reads=reads))
+        row = dict(shape=[E, M], label=label, err=err, iters=iters,
+                   bf=bf, ms=ms, ms_ring_off=ms_off, plain_ms=plain_ms,
+                   bytes=nbytes, ops=ops, one_sm_floor_ms=floor_ms,
+                   host_reads=reads, ctas=ctas)
+        if one_sm is not None:
+            err1, ms1, ms1_off, reads1, F1, s1 = one_sm
+            cluster_floor_ms = ops / (ctas * INT32_OPS_PER_S / sms) * 1e3
+            row.update(one_sm_err=err1, one_sm_ms=ms1,
+                       one_sm_ms_ring_off=ms1_off,
+                       cluster_floor_ms=cluster_floor_ms,
+                       cluster_barriers=dict(TF.CLUSTER_BARRIERS))
+            log(f"  B1 {label} [{E}, {M}] one-SM kernel: max_abs_err "
+                f"{err1} (ring included), {ms1:.3f} ms with the ring, "
+                f"{ms1_off:.3f} without; cluster path ({ctas} CTAs) "
+                f"{ms:.3f} / {ms_off:.3f} ms, {ms1 / ms:.2f}x; cluster "
+                f"floor {cluster_floor_ms:.3f} ms (int32 operations at "
+                f"{ctas} SMs' share); cluster barriers "
+                f"{TF.CLUSTER_BARRIERS}")
+            if err1 != 0 or _max_err([F1, s1], [Fk, sk]) != 0:
+                fail(f"B1's one-SM kernel and cluster path differ at "
+                     f"{label}")
+            if reads1 != reads:
+                fail(f"B1 {label}: {reads1} host reads on the one-SM "
+                     f"kernel, {reads} on the cluster path")
+        rows.append(row)
         log(f"  B1 {label} [{E}, {M}]: max_abs_err {err} (ring included), "
             f"iters {iters}, bf {bf}, clean {int(sk[o + 2])}; kernel "
             f"{ms:.3f} ms with the ring, {ms_off:.3f} ms without "
@@ -623,6 +691,12 @@ def check_fused(cases, l2_rate) -> list:
         if not int(sk[o + 2]):
             fail(f"B1 solve at {label} did not converge")
     return rows
+
+
+def _kernels_launches(name) -> int:
+    from poseidon_tpu_torch.ops import _kernels
+
+    return _kernels.LAUNCHES[name]
 
 
 def _prepared(big, vec, scale):
@@ -894,8 +968,9 @@ def check_global_update(cases) -> list:
 
 def kernel_cases():
     """B1 at the wave's coarse shape, the churn width at the gate's edge,
-    a contended instance and the gate's two extremes (fewest ECs at the
-    widest plane, most ECs at the narrowest); B2 at the wave's padded
+    a contended instance, the gate's two extremes (fewest ECs at the
+    widest plane, most ECs at the narrowest) and the burst's second band
+    [32, 2560]; B2 at the wave's padded
     width, cold and warm, at the gate's edge, and ragged (the wave's size
     unpadded, E and M not multiples of B2's tiles).  The global update
     runs on the cold and edge cases' mid-solve states, and on those of a
@@ -913,6 +988,8 @@ def kernel_cases():
                                   cap_lo=1, cap_hi=12)),
         ("tall", (1024, 128), dict(supply_lo=1, supply_hi=9,
                                    cap_lo=10, cap_hi=60)),
+        ("band 2", (32, 2560), dict(supply_lo=500, supply_hi=1500,
+                                    cap_lo=1, cap_hi=12)),
     ):
         inst = _instance(E, M, SEED, **kw)
         fused.append((label,) + _pack(*inst))
@@ -2063,7 +2140,7 @@ def _set_tiers(on: bool) -> None:
 
 
 KERNEL_NAMES = ("fused_ladder", "tiled_iteration", "global_update",
-                "coarse_disaggregate", "greedy_seed")
+                "coarse_disaggregate", "greedy_seed", "fused_ladder_cluster")
 # The kernels a solve route launches.
 ROUTE_KERNELS = {"fused": ("fused_ladder",),
                  "tiled": ("tiled_iteration", "global_update")}

@@ -33,9 +33,12 @@ NVCC_FLAGS = (
 )
 
 # Launch counts, one per kernel: each wrapper adds one where it launches
-# its kernel and nowhere else.
+# its kernel and nowhere else.  ``fused_ladder_cluster`` counts the B1
+# launches that took the cluster path; ``fused_ladder`` counts every B1
+# launch, either path.
 LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0, "global_update": 0,
-            "coarse_disaggregate": 0, "greedy_seed": 0}
+            "coarse_disaggregate": 0, "greedy_seed": 0,
+            "fused_ladder_cluster": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -129,9 +132,13 @@ def lib() -> SimpleNamespace:
                 fns[name] = fn
 
             bind("fused_ladder.cu", "pt_fused_ladder",
-                 [P] * 15 + [I] * 3 + [P], I)
+                 [P] * 15 + [I] * 4 + [P], I)
             bind("fused_ladder.cu", "pt_fused_ladder_smem_bytes", [I],
                  ctypes.c_size_t)
+            bind("fused_ladder.cu", "pt_fused_ladder_cluster_smem_bytes",
+                 [I] * 3, ctypes.c_size_t)
+            bind("fused_ladder.cu", "pt_fused_ladder_max_clusters", [I] * 3,
+                 I)
             bind("tiled_iteration.cu", "pt_tiled_iteration",
                  [P] * 27 + [I] * 7 + [P], I)
             bind("tiled_iteration.cu", "pt_tiled_iteration_ws_ints", [I, I],

@@ -78,6 +78,64 @@
 //   the iteration's sample after the update or the local relabel.
 //   Nothing in the kernel reads the ring; with a null ring pointer no
 //   store is made.
+//
+// Cluster path (fused_ladder_cluster_kernel, the entry point's ctas > 1):
+// the same ladder as one launch of a thread-block cluster of k CTAs (8,
+// or 16 where 8 do not fit), each on its own SM, with the planes in the
+// cluster's distributed shared memory instead of L2.  Same arithmetic,
+// same update order, int32 throughout: flows, prices, stats and ring are
+// bit-equal to the one-SM kernel's and to the plain ladder's, and so are
+// the iterations and sweeps, since integer sums, minima, maxima and ORs
+// do not depend on how they are split.
+// - CTA r holds rows [r S, r S + S) (S = ceil(E / k)) of C, Uem, F, the
+//   pushes P (shared with the global update's forward lengths) and the
+//   reverse lengths, 20 bytes a cell, with its rows' [S] vectors; every
+//   CTA holds every [M] vector and computes every column's finish alike,
+//   so no column result needs a second exchange.  F, pe, Ffb, Fmt, pm and
+//   pt are loaded at entry and written back at exit.  512 threads a CTA
+//   (128 registers, no spills).
+// - Row stages (the push sweep's row pass, the post-push row pass, the
+//   Bellman-Ford row pass) stay inside a CTA: a lane takes four adjacent
+//   columns (16-byte loads; M a multiple of 4), one warp scan a
+//   128-column chunk.
+// - Column stages run one thread per (column, row segment) of the CTA's
+//   slab (ColUnits); the CTA's partials per column go to the other CTAs
+//   as reductions into their shared memory (red.shared::cluster: add, min,
+//   max, or), which they read and reset after the next cluster barrier.
+//   The push sweep's column prefix is the one-SM kernel's two-pass
+//   segmented scan with the CTAs as the outer segments: pass 1 adds each
+//   slab's sum of res into the CTAs below it, pass 2 walks each slab from
+//   that carry.  The sink row's EC part does the same over the slabs.
+// - Block reductions become cluster reductions: warp 0 of each CTA
+//   reduces its CTA's partial and stores it into a slot of every CTA;
+//   after the barrier each CTA combines its k slots in rank order.  The
+//   push sweep's sink reduction carries the next iteration's entering
+//   state (flows and excesses do not change until the next push).
+// - Cluster barriers (barrier.cluster, split into arrive and wait where a
+//   stage can run between): 3 a push/relabel iteration (the column
+//   prefix's carries, with the sink row's machine scan inside; the
+//   columns' partials, with the post-push row pass inside; the sink and
+//   entering-state reduction), 1 a Bellman-Ford sweep (the column minima
+//   and the sink's partial together), 1 a global update (its convergence
+//   check), 2 an epsilon phase (the excesses and the entering state).
+//   The local relabel needs none: every CTA holds what it reads.
+// - Bound: the operations at k SMs' share of the card's int32 rate.  At
+//   [128, 256] over 8 CTAs the kernel runs 6.4-7.6 ms a burst instance
+//   against 24.4-28.7 ms for the one-SM kernel, and 21.2 ms against 71.2
+//   on the seeded case (827 iterations, 3340 sweeps); per iteration about
+//   24,000 cycles, of which the three barriers take some 4,000 and the
+//   cross-CTA reductions and row passes most of the rest (clock64 stage
+//   profile, NVIDIA H100 80GB HBM3, 700 W).
+// - Which path (ops/transport_fused.py::ladder_ctas, from the shape
+//   alone): the cluster where E >= 16, M is a multiple of 4 and the
+//   shares of the planes fit a CTA's 227 KB (cluster_layout).  From 16
+//   rows the cluster path was 1.2x to 10x faster at every shape timed
+//   ([16, 128] 1.47 against 1.97 ms, [16, 2048] 17.8 against 26.3,
+//   [1024, 128] 24.8 against 249.7); at 8 rows it was no faster on wide
+//   planes ([8, 1024] 1.36 against 1.37 ms, [8, 2048] 10.6 against 10.8 at
+//   8 CTAs).
+
+#include <cooperative_groups.h>
 
 #include <cstddef>
 
@@ -182,11 +240,12 @@ struct SweepOp {
 // each thread whole columns that need no partner.  With segs > 1 the
 // units' partials meet in shared memory (segs * M <= kThreads ints per
 // buffer), and one thread per column finishes it after one barrier.
-struct ColUnits {
+template <int T>
+struct ColUnitsOf {
   int E, M, segs, seg, n;
-  __device__ ColUnits(int E_, int M_) : E(E_), M(M_) {
+  __device__ ColUnitsOf(int E_, int M_) : E(E_), M(M_) {
     segs = 1;
-    while (segs * 2 <= E && segs * 2 * M <= kThreads) segs *= 2;
+    while (segs * 2 <= E && segs * 2 * M <= T) segs *= 2;
     seg = (E + segs - 1) / segs;
     n = segs * M;
   }
@@ -198,19 +257,22 @@ struct ColUnits {
     e1 = min(e0 + seg, E);
   }
 };
+using ColUnits = ColUnitsOf<kThreads>;
 
 // Work units of the row stages that reduce along EC rows: (row e, column
 // segment q) pairs, u = q * E + e, one warp each, its lanes across the
 // segment's 32-column chunks (coalesced).  Each row's chunks split into
 // `segs` contiguous segments: the largest power of two <= the chunk count
-// with segs * E <= kWarps, at least 1, so that with fewer than 32 rows
-// every warp still has work.  With segs > 1 the warps' partials meet in
-// shared memory and one thread per row finishes it after one barrier.
-struct RowUnits {
+// with segs * E <= W (kWarps here), at least 1, so that with fewer than
+// 32 rows every warp still has work.  With segs > 1 the warps' partials
+// meet in shared memory and one thread per row finishes it after one
+// barrier.  A chunk is CW columns (32 here: one per lane).
+template <int W, int CW = 32>
+struct RowUnitsOf {
   int E, chunks, segs, seg, n;
-  __device__ RowUnits(int E_, int M) : E(E_), chunks((M + 31) / 32) {
+  __device__ RowUnitsOf(int E_, int M) : E(E_), chunks((M + CW - 1) / CW) {
     segs = 1;
-    while (segs * 2 <= chunks && segs * 2 * E <= kWarps) segs *= 2;
+    while (segs * 2 <= chunks && segs * 2 * E <= W) segs *= 2;
     seg = (chunks + segs - 1) / segs;
     n = segs * E;
   }
@@ -222,6 +284,7 @@ struct RowUnits {
     c1 = min(c0 + seg, chunks);
   }
 };
+using RowUnits = RowUnitsOf<kWarps>;
 
 // Walk items [i0, i1) in batches of N: every load of a batch is issued
 // before any of its uses (arithmetic, stores), so a batch costs one round
@@ -243,21 +306,28 @@ __device__ __forceinline__ void walk(int i0, int i1, Load load, Use use) {
 // sweep: the push to the sink and what is left to push back to ECs.
 struct ColHead { int pm, fmt, cap, rc_mt, mt_push, left; };
 
-__device__ __forceinline__ ColHead col_head(const Planes& p, int m, int pt) {
+__device__ __forceinline__ ColHead col_head_of(int xm, int pm, int fmt, int cap, int pt) {
   ColHead h;
-  int xm = p.exc_m[m];
-  h.pm = p.pm[m];
-  h.fmt = p.Fmt[m];
-  h.cap = __ldg(p.cap + m);
+  h.pm = pm;
+  h.fmt = fmt;
+  h.cap = cap;
   h.rc_mt = h.pm - pt;
   h.mt_push = (h.rc_mt < 0 && xm > 0) ? min(h.cap - h.fmt, xm) : 0;
   h.left = xm - h.mt_push;
   return h;
 }
 
-__device__ __forceinline__ int rc_em_at(const Planes& p, int idx, int pe_e, int pm_m) {
-  int c = __ldg(p.C + idx);
+__device__ __forceinline__ ColHead col_head(const Planes& p, int m, int pt) {
+  return col_head_of(p.exc_m[m], p.pm[m], p.Fmt[m], __ldg(p.cap + m), pt);
+}
+
+// The reduced cost of an EC -> machine arc of cost c.
+__device__ __forceinline__ int rc_em(int c, int pe_e, int pm_m) {
   return c < PT_INF_COST ? c + pe_e - pm_m : PT_POS;
+}
+
+__device__ __forceinline__ int rc_em_at(const Planes& p, int idx, int pe_e, int pm_m) {
+  return rc_em(__ldg(p.C + idx), pe_e, pm_m);
 }
 
 // Excesses from the flow state: exc_e, exc_m, and the scalar exc_t.
@@ -838,23 +908,989 @@ fused_ladder_kernel(Planes g, const int* knobs, int* stats) {
   }
 }
 
+// ------------------------------------------------------------ cluster path
+// The same ladder over a thread-block cluster of k CTAs (see the header
+// note): CTA r holds rows [r * S, r * S + S) of the planes (S = ceil(E /
+// k)) in its shared memory, and every CTA holds every [M] vector.
+
+constexpr int kMaxCtas = 16;
+// A CTA's threads: half the one-SM kernel's, so that no thread spills
+// (128 registers each) and a block barrier waits on 16 warps.
+constexpr int kClThreads = 512;
+constexpr int kClWarps = kClThreads / 32;
+// Warps a row stage spreads a CTA's rows over (RowUnitsOf): a row splits
+// only below 16 rows a CTA.  A row stage's lane takes four adjacent
+// columns (one 16-byte load a plane), so a chunk is 128 columns.
+constexpr int kClRowWarps = 16;
+constexpr int kQuad = 4;
+using ClRowUnits = RowUnitsOf<kClRowWarps, 32 * kQuad>;
+using ClColUnits = ColUnitsOf<kClThreads>;
+
+// A cluster reduction's value (up to 32 bytes).
+struct alignas(16) Slot { unsigned char b[32]; };
+
+// The cluster path's block scalars.  A cluster reduction runs in warp 0
+// of each CTA: it reduces the CTA's partial and stores it into
+// slot[parity][its rank] of every CTA; after the cluster barrier every
+// thread combines its CTA's k slots in rank order.  Consecutive
+// reductions alternate the parity, so a reduction's slots are written
+// again only after the next barrier, by which every CTA has read them.
+struct ClShared {
+  Slot slot[2][kMaxCtas];
+  int tel[8];  // the telemetry sample (rank 0)
+};
+constexpr int kClSharedBytes = 1152;
+static_assert(sizeof(ClShared) <= kClSharedBytes, "ClShared outgrew its slot");
+
+// Offsets, in ints from the start of the dynamic shared memory, of the
+// cluster path's arrays (set on the host by cluster_layout).
+struct ClLayout {
+  // [S, M]: this CTA's rows of C, Uem and F; the push sweep's P, which a
+  // global update reuses for its forward lengths Lf; the reverse lengths.
+  int C, Uem, F, PL, Lr;
+  // [S]: this CTA's rows.
+  int U, sup, pe, Ffb, exc_e, fbp, tpe, cand_e, hadm_e, de0, de1;
+  // [M]: every column, in every CTA.  A global update's dm0, dm1 and rg
+  // share one span with the push sweep's tpm, cand_m, hadm_m and r2s,
+  // which are dead from the sweep's column finish on when the update runs.
+  int cap, pm, Fmt, exc_m, tpm, cand_m, hadm_m, dm0, dm1;
+  // What the other CTAs combine into this one with reductions, read and
+  // reset to the identity after the cluster barrier: r1 [M + 1], column
+  // sums (all CTAs' in the excesses, the CTAs' above in the push sweep's
+  // column prefix) and [M] the sink-row sums of the CTAs above; r2s, r2c
+  // and r2h [M], the push sweep's column partials (flow sum, candidate,
+  // admissible arc); rg [2, M], a Bellman-Ford sweep's column minima, by
+  // parity.
+  int r1, r2s, r2c, r2h, rg;
+  int part;   // [4 * kClWarps] row-segment partials
+  int cpart;  // [4, kClThreads] column-segment partials (ColUnits)
+  int ints;   // the whole size
+};
+
+ClLayout cluster_layout(int E, int M, int k) {
+  const int S = (E + k - 1) / k;
+  ClLayout L;
+  int o = kClSharedBytes / 4;
+  // Every array starts on 16 bytes (the row stages' four-column loads).
+  auto take = [&](int n) { int at = o; o += (n + 3) & ~3; return at; };
+  L.C = take(S * M); L.Uem = take(S * M); L.F = take(S * M);
+  L.PL = take(S * M); L.Lr = take(S * M);
+  L.U = take(S); L.sup = take(S); L.pe = take(S); L.Ffb = take(S);
+  L.exc_e = take(S); L.fbp = take(S); L.tpe = take(S); L.cand_e = take(S);
+  L.hadm_e = take(S); L.de0 = take(S); L.de1 = take(S);
+  L.cap = take(M); L.pm = take(M); L.Fmt = take(M); L.exc_m = take(M);
+  const int span = take(4 * M);
+  L.tpm = span; L.cand_m = span + M; L.hadm_m = span + 2 * M; L.r2s = span + 3 * M;
+  L.dm0 = span; L.dm1 = span + M; L.rg = span + 2 * M;
+  L.r1 = take(M + 1); L.r2c = take(M); L.r2h = take(M);
+  L.part = take(4 * kClWarps);
+  L.cpart = take(4 * kClThreads);
+  L.ints = o;
+  return L;
+}
+
+size_t cluster_smem_bytes(int E, int M, int k) {
+  return sizeof(int) * (size_t)cluster_layout(E, M, k).ints;
+}
+
+namespace cl {
+
+namespace cg = cooperative_groups;
+
+extern __shared__ __align__(16) int sm[];
+
+constexpr int kMinIdentity = 0x7fffffff;  // rg's identity
+
+// A CTA's place in the cluster and the cluster-uniform scalars, held by
+// every thread (each computes them alike).
+struct Ctx {
+  int rank, k, rows, e0, M;
+  int m0, m1;  // the columns this CTA counts in a cluster-wide sum
+  int sp;      // slot parity of the next reduction
+  int pt, exc_t, hadm_t, cand_t;
+};
+
+__device__ __forceinline__ ClShared& shared() { return *reinterpret_cast<ClShared*>(sm); }
+
+// The cluster barrier, and its two halves for work that needs neither
+// side: what a CTA wrote before arriving, its reductions into the other
+// CTAs included, is seen by every CTA after it waits.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Threads a column's combine spreads its sends over (each takes every
+// spread-th target CTA), where the CTA has more threads than columns.
+__device__ __forceinline__ int spread(int M) { return max(kClThreads / M, 1); }
+
+// Combine v into CTA `rank`'s int at offset `off`: a reduction in the
+// other CTA's shared memory that the sender does not wait on (red, not
+// atom), ordered before the sender's next cluster barrier arrival.
+__device__ __forceinline__ unsigned cluster_addr(int off, int rank) {
+  unsigned local = (unsigned)__cvta_generic_to_shared(sm + off), remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ void red_add(int off, int rank, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.add.s32 [%0], %1;"
+               :: "r"(cluster_addr(off, rank)), "r"(v) : "memory");
+}
+__device__ __forceinline__ void red_min(int off, int rank, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.min.s32 [%0], %1;"
+               :: "r"(cluster_addr(off, rank)), "r"(v) : "memory");
+}
+__device__ __forceinline__ void red_max(int off, int rank, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.max.s32 [%0], %1;"
+               :: "r"(cluster_addr(off, rank)), "r"(v) : "memory");
+}
+__device__ __forceinline__ void red_or(int off, int rank, int v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.or.b32 [%0], %1;"
+               :: "r"(cluster_addr(off, rank)), "r"(v) : "memory");
+}
+
+// A cluster reduction of warp 0's values (the other warps' are not
+// read): every thread calls it and gets the result.  The values must be
+// in place before warp 0 reads them; the barrier publishes nothing else.
+template <typename T, typename Op>
+__device__ T cluster_reduce(Ctx& c, T v, Op op, T identity) {
+  static_assert(sizeof(T) <= sizeof(Slot), "a slot holds 32 bytes");
+  ClShared& s = shared();
+  if ((threadIdx.x >> 5) == 0) {
+    v = pt_warp_reduce(v, op);
+    const int lane = threadIdx.x & 31;
+    if (lane < c.k)
+      *cg::this_cluster().map_shared_rank(reinterpret_cast<T*>(&s.slot[c.sp][c.rank]), lane) = v;
+  }
+  cluster_barrier();
+  T r = identity;
+  for (int j = 0; j < c.k; ++j) r = op(r, *reinterpret_cast<const T*>(&s.slot[c.sp][j]));
+  c.sp ^= 1;
+  return r;
+}
+
+// The push sweep's sink reduction fused with the next iteration's
+// entering state (flows and excesses do not change until the next push).
+struct SinkEnter { long long pos; int sum, hadm, cand, cnt; };
+struct SinkEnterOp {
+  __device__ SinkEnter operator()(SinkEnter a, SinkEnter b) const {
+    return {a.pos + b.pos, a.sum + b.sum, a.hadm | b.hadm, max(a.cand, b.cand), a.cnt + b.cnt};
+  }
+};
+
+// Warp 0's lanes' share of the entering state: this CTA's rows and its
+// columns.
+__device__ __forceinline__ void enter_add(const ClLayout& L, const Ctx& c, long long& pos, int& cnt) {
+  const int lane = threadIdx.x & 31;
+  for (int e = lane; e < c.rows; e += 32) {
+    int x = sm[L.exc_e + e];
+    pos += max(x, 0);
+    cnt += x > 0;
+  }
+  for (int m = c.m0 + lane; m < c.m1; m += 32) {
+    int x = sm[L.exc_m + m];
+    pos += max(x, 0);
+    cnt += x > 0 ? kColUnit : 0;
+  }
+}
+
+// Slab and vectors in from global memory; the push sweep's reduction
+// buffers set to their identities.
+__device__ void load(const Planes& g, const ClLayout& L, const Ctx& c) {
+  const int M = c.M, n = c.rows * M;
+  const size_t base = (size_t)c.e0 * M;
+  for (int i = threadIdx.x; i < n; i += kClThreads) {
+    sm[L.C + i] = __ldg(g.C + base + i);
+    sm[L.Uem + i] = __ldg(g.Uem + base + i);
+    sm[L.F + i] = g.F[base + i];
+  }
+  for (int e = threadIdx.x; e < c.rows; e += kClThreads) {
+    const int ge = c.e0 + e;
+    sm[L.U + e] = __ldg(g.U + ge);
+    sm[L.sup + e] = __ldg(g.sup + ge);
+    sm[L.pe + e] = g.pe[ge];
+    sm[L.Ffb + e] = g.Ffb[ge];
+  }
+  for (int m = threadIdx.x; m < M; m += kClThreads) {
+    sm[L.cap + m] = __ldg(g.cap + m);
+    sm[L.pm + m] = g.pm[m];
+    sm[L.Fmt + m] = g.Fmt[m];
+    sm[L.r1 + m] = 0;
+    sm[L.r2s + m] = 0;
+    sm[L.r2c + m] = PT_NEG;
+    sm[L.r2h + m] = 0;
+  }
+  if (threadIdx.x == 0) sm[L.r1 + M] = 0;
+}
+
+// Refine to eps (the one-SM kernel's refine, on the slab and the [M]
+// vectors).
+__device__ void refine(const ClLayout& L, const Ctx& c, int eps, int pt0) {
+  const int M = c.M;
+  for (int i = threadIdx.x; i < c.rows * M; i += kClThreads) {
+    int e = i / M, m = i - e * M;
+    int rc = rc_em(sm[L.C + i], sm[L.pe + e], sm[L.pm + m]);
+    if (rc < -eps) sm[L.F + i] = sm[L.Uem + i];
+    else if (rc > eps) sm[L.F + i] = 0;
+  }
+  for (int e = threadIdx.x; e < c.rows; e += kClThreads) {
+    int rc = sm[L.U + e] + sm[L.pe + e] - pt0;
+    if (rc < -eps) sm[L.Ffb + e] = sm[L.sup + e];
+    else if (rc > eps) sm[L.Ffb + e] = 0;
+  }
+  for (int m = threadIdx.x; m < M; m += kClThreads) {
+    int rc = sm[L.pm + m] - pt0;
+    if (rc < -eps) sm[L.Fmt + m] = sm[L.cap + m];
+    else if (rc > eps) sm[L.Fmt + m] = 0;
+  }
+  __syncthreads();
+}
+
+// Excesses from the flow state: exc_e (this CTA's rows), exc_m (every
+// column, from the CTAs' column sums) and c.exc_t.  One cluster barrier.
+__device__ void excesses(const ClLayout& L, Ctx& c, int total) {
+  const int M = c.M;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int e = w; e < c.rows; e += kClWarps) {
+    int acc = 0;
+    for (int m = lane; m < M; m += 32) acc += sm[L.F + e * M + m];
+    acc = pt_warp_reduce(acc, PtSum());
+    if (lane == 0) sm[L.exc_e + e] = sm[L.sup + e] - acc - sm[L.Ffb + e];
+  }
+  // Machine columns: segment sums, summed per column, into r1 of every
+  // CTA.
+  const ClColUnits cu(c.rows, M);
+  int* cpart = sm + L.cpart;
+  auto send = [&](int m, int acc, int t, int T) {
+    if (acc != 0)
+      for (int j = t; j < c.k; j += T) red_add(L.r1 + m, j, acc);
+  };
+  for (int u = threadIdx.x; u < cu.n; u += kClThreads) {
+    int m, r, e0, e1;
+    cu.at(u, m, r, e0, e1);
+    int acc = 0;
+    for (int e = e0; e < e1; ++e) acc += sm[L.F + e * M + m];
+    if (cu.segs == 1) send(m, acc, 0, 1);
+    else cpart[u] = acc;
+  }
+  if (cu.segs > 1) {
+    __syncthreads();
+    const int T = spread(M);
+    for (int v = threadIdx.x; v < T * M; v += kClThreads) {
+      const int t = v / M, m = v - t * M;
+      int acc = 0;
+      for (int r = 0; r < cu.segs; ++r) acc += cpart[r * M + m];
+      send(m, acc, t, T);
+    }
+  }
+  int part = 0;
+  if (w == 0) {
+    for (int e = lane; e < c.rows; e += 32) part += sm[L.Ffb + e];
+    for (int m = c.m0 + lane; m < c.m1; m += 32) part += sm[L.Fmt + m];
+  }
+  c.exc_t = cluster_reduce(c, part, PtSum(), 0) - total;
+  for (int m = threadIdx.x; m < M; m += kClThreads) {
+    sm[L.exc_m + m] = sm[L.r1 + m] - sm[L.Fmt + m];
+    sm[L.r1 + m] = 0;
+  }
+  __syncthreads();
+}
+
+
+// Four adjacent ints of the shared memory (16-byte aligned).
+__device__ __forceinline__ int4 quad(int off) { return *reinterpret_cast<const int4*>(sm + off); }
+__device__ __forceinline__ void set_quad(int off, int4 v) { *reinterpret_cast<int4*>(sm + off) = v; }
+__device__ __forceinline__ int at4(const int4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ ColHead col_head_cl(const ClLayout& L, int m, int pt) {
+  return col_head_of(sm[L.exc_m + m], sm[L.pm + m], sm[L.Fmt + m], sm[L.cap + m], pt);
+}
+
+// The row prefix pushes along this CTA's EC rows (the one-SM kernel's row
+// pass, segments and all): P and fbp.  A lane takes four adjacent
+// columns of a 128-column chunk: their res, their own inclusive prefix,
+// and one warp scan of the lanes' sums a chunk.
+__device__ void push_rows(const ClLayout& L, const Ctx& c) {
+  const int M = c.M, pt = c.pt, rows = c.rows;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const ClRowUnits ru(rows, M);
+  int* rres_part = sm + L.part;
+  int* rpush_part = sm + L.part + kClWarps;
+  // The res of the lane's four columns of chunk ch (0 past M).
+  auto row_res = [&](int e, int xe, int pe_e, int ch) {
+    const int m = (ch * 32 + lane) * kQuad;
+    int4 r = make_int4(0, 0, 0, 0);
+    if (m < M && xe > 0) {
+      const int idx = e * M + m;
+      const int4 cst = quad(L.C + idx), u = quad(L.Uem + idx), f = quad(L.F + idx);
+      const int4 pm = quad(L.pm + m);
+      r.x = rc_em(cst.x, pe_e, pm.x) < 0 ? u.x - f.x : 0;
+      r.y = rc_em(cst.y, pe_e, pm.y) < 0 ? u.y - f.y : 0;
+      r.z = rc_em(cst.z, pe_e, pm.z) < 0 ? u.z - f.z : 0;
+      r.w = rc_em(cst.w, pe_e, pm.w) < 0 ? u.w - f.w : 0;
+    }
+    return r;
+  };
+  auto fb_finish = [&](int e, int pushed) {
+    int left = sm[L.exc_e + e] - pushed;
+    int rfb = sm[L.U + e] + sm[L.pe + e] - pt;
+    sm[L.fbp + e] = (rfb < 0 && left > 0) ? min(sm[L.sup + e] - sm[L.Ffb + e], left) : 0;
+  };
+  if (ru.segs > 1) {
+    for (int u = w; u < ru.n; u += kClWarps) {
+      int e, q, c0, c1;
+      ru.at(u, e, q, c0, c1);
+      int xe = sm[L.exc_e + e], pe_e = sm[L.pe + e];
+      int sum = 0;
+      for (int ch = c0; ch < c1; ++ch) {
+        const int4 r = row_res(e, xe, pe_e, ch);
+        sum += r.x + r.y + r.z + r.w;
+      }
+      sum = pt_warp_reduce(sum, PtSum());
+      if (lane == 0) rres_part[u] = sum;
+    }
+    __syncthreads();
+  }
+  for (int u = w; u < ru.n; u += kClWarps) {
+    int e, q, c0, c1;
+    ru.at(u, e, q, c0, c1);
+    int xe = sm[L.exc_e + e], pe_e = sm[L.pe + e];
+    int carry = 0, pushed = 0;
+    for (int j = 0; j < q; ++j) carry += rres_part[j * rows + e];
+    for (int ch = c0; ch < c1; ++ch) {
+      const int m = (ch * 32 + lane) * kQuad;
+      const int4 r = row_res(e, xe, pe_e, ch);
+      const int s1 = r.x, s2 = s1 + r.y, s3 = s2 + r.z, s4 = s3 + r.w;
+      const int incl = pt_warp_incl_scan(s4);
+      const int before = carry + incl - s4;  // res of the row's columns before m
+      int4 p;
+      p.x = max(min(r.x, xe - before), 0);
+      p.y = max(min(r.y, xe - (before + s1)), 0);
+      p.z = max(min(r.z, xe - (before + s2)), 0);
+      p.w = max(min(r.w, xe - (before + s3)), 0);
+      if (m < M) set_quad(L.PL + e * M + m, p);
+      pushed += p.x + p.y + p.z + p.w;
+      carry += __shfl_sync(PT_FULL, incl, 31);
+    }
+    pushed = pt_warp_reduce(pushed, PtSum());
+    if (lane == 0) {
+      if (ru.segs == 1) fb_finish(e, pushed);
+      else rpush_part[u] = pushed;
+    }
+  }
+  if (ru.segs > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < rows; e += kClThreads) {
+      int pushed = 0;
+      for (int q = 0; q < ru.segs; ++q) pushed += rpush_part[q * rows + e];
+      fb_finish(e, pushed);
+    }
+  }
+}
+
+// One push sweep + new excesses + relabel candidates (prices frozen).
+// Three cluster barriers: after the column prefix's pass-1 sums (split:
+// the sink row's machine part runs between its halves), after the
+// columns' pass-2 partials (split: the rows' post-push pass runs between
+// its halves), and in the sink reduction fused with the next entering
+// state, which it returns.
+__device__ Enter push_sweep(const ClLayout& L, Ctx& c, int total, bool fired) {
+  const int M = c.M, rows = c.rows;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int pt = c.pt, exc_t = c.exc_t;
+  push_rows(L, c);
+  // The sink row over [machines, ECs] (pre-push Fmt / Ffb) runs in the
+  // last warp: this slab's sum of the EC part into r1[M] of the CTAs
+  // below; inside the first barrier the machine part (the same in every
+  // CTA) as a chain of warp scans; after it the slab's pushes from the
+  // machine total plus the slabs above.
+  constexpr int kSinkWarp = kClWarps - 1;
+  auto sink_res_e = [&](int e) {
+    if (exc_t <= 0) return 0;
+    return (-(sm[L.U + e] + sm[L.pe + e] - pt) < 0) ? sm[L.Ffb + e] : 0;
+  };
+  int tm = 0;  // the machine part's total (the sink warp)
+  if (w == kSinkWarp) {
+    int acc = 0;
+    for (int e = lane; e < rows; e += 32) acc += sink_res_e(e);
+    acc = pt_warp_reduce(acc, PtSum());
+    if (acc != 0 && lane > c.rank && lane < c.k) red_add(L.r1 + M, lane, acc);
+  }
+  // Machine columns, pass 1: each (column, row segment) unit's sum of
+  // res; the slab's sum per column into r1 of the CTAs below.
+  const ClColUnits cu(rows, M);
+  int* res_part = sm + L.cpart;                 // segment sums of res
+  int* sum_part = sm + L.cpart + kClThreads;      // segment sums of the new flows
+  int* cand_part = sm + L.cpart + 2 * kClThreads;
+  int* hadm_part = sm + L.cpart + 3 * kClThreads;
+  auto send_res = [&](int m, int seg, int t, int T) {
+    if (seg != 0)
+      for (int j = c.rank + 1 + t; j < c.k; j += T) red_add(L.r1 + m, j, seg);
+  };
+  for (int u = threadIdx.x; u < cu.n; u += kClThreads) {
+    int m, r, e0, e1;
+    cu.at(u, m, r, e0, e1);
+    const ColHead h = col_head_cl(L, m, pt);
+    int seg = 0;
+    for (int e = e0; e < e1; ++e) {
+      int idx = e * M + m;
+      int rc = rc_em(sm[L.C + idx], sm[L.pe + e], h.pm);
+      seg += (rc > 0 && h.left > 0) ? sm[L.F + idx] : 0;
+    }
+    if (cu.segs == 1) send_res(m, seg, 0, 1);
+    else res_part[u] = seg;
+  }
+  if (cu.segs > 1) {
+    __syncthreads();
+    const int T = spread(M);
+    for (int v = threadIdx.x; v < T * M; v += kClThreads) {
+      const int t = v / M, m = v - t * M;
+      int seg = 0;
+      for (int r = 0; r < cu.segs; ++r) seg += res_part[r * M + m];
+      send_res(m, seg, t, T);
+    }
+  }
+  cluster_arrive();
+  if (w == kSinkWarp) {
+    for (int b = 0; b < M; b += 32) {
+      int i = b + lane;
+      int res = (i < M && exc_t > 0 && -(sm[L.pm + i] - pt) < 0) ? sm[L.Fmt + i] : 0;
+      int incl = pt_warp_incl_scan(res);
+      int before = tm + incl - res;
+      if (i < M) sm[L.tpm + i] = max(min(res, exc_t - before), 0);
+      tm += __shfl_sync(PT_FULL, incl, 31);
+    }
+  }
+  cluster_wait();
+  // Pass 2: walk each segment from the sums of the slabs above and of the
+  // segments above it; the column's partials into r2 of every CTA.
+  auto send_col = [&](int m, int colsum, int cand, int hadm, int t, int T) {
+    for (int j = t; j < c.k; j += T) {
+      if (colsum != 0) red_add(L.r2s + m, j, colsum);
+      if (cand != PT_NEG) red_max(L.r2c + m, j, cand);
+      if (hadm) red_or(L.r2h + m, j, hadm);
+    }
+  };
+  for (int u = threadIdx.x; u < cu.n; u += kClThreads) {
+    int m, r, e0, e1;
+    cu.at(u, m, r, e0, e1);
+    const ColHead h = col_head_cl(L, m, pt);
+    int before = sm[L.r1 + m];
+    for (int j = 0; j < r; ++j) before += res_part[j * M + m];
+    if (cu.segs == 1) sm[L.r1 + m] = 0;
+    int colsum = 0, cand = PT_NEG, hadm = 0;
+    for (int e = e0; e < e1; ++e) {
+      int idx = e * M + m;
+      int f = sm[L.F + idx], cst = sm[L.C + idx];
+      bool adm = cst < PT_INF_COST;
+      int pe_e = sm[L.pe + e];
+      int rc = adm ? cst + pe_e - h.pm : PT_POS;
+      int res = (rc > 0 && h.left > 0) ? f : 0;
+      int push = max(min(res, h.left - before), 0);
+      before += res;
+      int fn = f + sm[L.PL + idx] - push;
+      sm[L.F + idx] = fn;
+      colsum += fn;
+      if (rc > 0 && fn > 0) hadm = 1;
+      if (fn > 0 && adm) cand = max(cand, pe_e + cst);
+    }
+    if (cu.segs == 1) {
+      send_col(m, colsum, cand, hadm, 0, 1);
+    } else {
+      sum_part[u] = colsum;
+      cand_part[u] = cand;
+      hadm_part[u] = hadm;
+    }
+  }
+  // The slab's sink pushes to its EC fallbacks, in row order.
+  if (w == kSinkWarp) {
+    int carry = tm + sm[L.r1 + M];
+    __syncwarp();
+    if (lane == 0) sm[L.r1 + M] = 0;
+    for (int b = 0; b < rows; b += 32) {
+      int e = b + lane;
+      int res = e < rows ? sink_res_e(e) : 0;
+      int incl = pt_warp_incl_scan(res);
+      int before = carry + incl - res;
+      if (e < rows) sm[L.tpe + e] = max(min(res, exc_t - before), 0);
+      carry += __shfl_sync(PT_FULL, incl, 31);
+    }
+  }
+  __syncthreads();
+  if (cu.segs > 1) {
+    const int T = spread(M);
+    for (int v = threadIdx.x; v < T * M; v += kClThreads) {
+      const int t = v / M, m = v - t * M;
+      if (t == 0) sm[L.r1 + m] = 0;
+      int colsum = 0, cand = PT_NEG, hadm = 0;
+      for (int r = 0; r < cu.segs; ++r) {
+        colsum += sum_part[r * M + m];
+        cand = max(cand, cand_part[r * M + m]);
+        hadm |= hadm_part[r * M + m];
+      }
+      send_col(m, colsum, cand, hadm, t, T);
+    }
+  }
+  // The CTA's partials are sent; its rows' post-push pass needs none of
+  // the other CTAs', so it runs while they arrive.
+  cluster_arrive();
+  // EC rows, post-push (one-SM row pass): fallback flow, excess, relabel
+  // candidates.
+  const ClRowUnits ru(rows, M);
+  Sink* row_part = reinterpret_cast<Sink*>(sm + L.part);
+  auto row_finish = [&](int e, Sink k) {
+    int sup = sm[L.sup + e], u = sm[L.U + e];
+    int ffb = sm[L.Ffb + e] + sm[L.fbp + e] - sm[L.tpe + e];
+    sm[L.Ffb + e] = ffb;
+    sm[L.exc_e + e] = sup - k.sum - ffb;
+    bool fb_open = sup - ffb > 0;
+    int rfb = u + sm[L.pe + e] - pt;
+    sm[L.hadm_e + e] = (k.hadm || (rfb < 0 && fb_open)) ? 1 : 0;
+    sm[L.cand_e + e] = max(k.cand, fb_open ? pt - u : PT_NEG);
+  };
+  for (int u = w; u < ru.n; u += kClWarps) {
+    int e, q, c0, c1;
+    ru.at(u, e, q, c0, c1);
+    int pe_e = sm[L.pe + e];
+    Sink k{0, 0, PT_NEG};
+    for (int ch = c0; ch < c1; ++ch) {
+      const int m = (ch * 32 + lane) * kQuad;
+      if (m >= M) continue;
+      const int idx = e * M + m;
+      const int4 f4 = quad(L.F + idx), c4 = quad(L.C + idx), u4 = quad(L.Uem + idx);
+      const int4 pm4 = quad(L.pm + m);
+#pragma unroll
+      for (int i = 0; i < kQuad; ++i) {
+        const int fn = at4(f4, i), cst = at4(c4, i), pm_m = at4(pm4, i);
+        const bool adm = cst < PT_INF_COST;
+        const int rc = adm ? cst + pe_e - pm_m : PT_POS;
+        const bool has_em = at4(u4, i) - fn > 0;
+        k.sum += fn;
+        if (rc < 0 && has_em) k.hadm = 1;
+        if (has_em && adm) k.cand = max(k.cand, pm_m - cst);
+      }
+    }
+    k = pt_warp_reduce(k, SinkOp());
+    if (lane == 0) {
+      if (ru.segs == 1) row_finish(e, k);
+      else row_part[u] = k;
+    }
+  }
+  if (ru.segs > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < rows; e += kClThreads) {
+      Sink k = row_part[e];
+      for (int q = 1; q < ru.segs; ++q) k = SinkOp()(k, row_part[q * rows + e]);
+      row_finish(e, k);
+    }
+  }
+  cluster_wait();
+  // Every column: the CTAs' partials, then the sink arc (one-SM
+  // col_finish).
+  for (int m = threadIdx.x; m < M; m += kClThreads) {
+    const int colsum = sm[L.r2s + m], cand = sm[L.r2c + m], hadm = sm[L.r2h + m];
+    sm[L.r2s + m] = 0;
+    sm[L.r2c + m] = PT_NEG;
+    sm[L.r2h + m] = 0;
+    const ColHead h = col_head_cl(L, m, pt);
+    int fmt_new = h.fmt + h.mt_push - sm[L.tpm + m];
+    sm[L.Fmt + m] = fmt_new;
+    sm[L.exc_m + m] = colsum - fmt_new;
+    bool mt_open = h.cap - fmt_new > 0;
+    sm[L.hadm_m + m] = ((h.rc_mt < 0 && mt_open) || hadm) ? 1 : 0;
+    sm[L.cand_m + m] = max(mt_open ? pt : PT_NEG, cand);
+  }
+  __syncthreads();
+  // A global update follows: its column minima's buffers (over hadm_m
+  // and r2s, read above) to their identity before the barrier that
+  // precedes the other CTAs' first reductions into them.
+  if (fired)
+    for (int m = threadIdx.x; m < 2 * M; m += kClThreads) sm[L.rg + m] = kMinIdentity;
+  // Sink: new excess and relabel candidates (old prices, new flows), and
+  // the next entering state, in one cluster reduction.
+  SinkEnter k{0, 0, 0, PT_NEG, 0};
+  if (w == 0) {
+    for (int m = c.m0 + lane; m < c.m1; m += 32) {
+      int f = sm[L.Fmt + m], pm_m = sm[L.pm + m];
+      k.sum += f;
+      if (-(pm_m - pt) < 0 && f > 0) k.hadm = 1;
+      if (f > 0) k.cand = max(k.cand, pm_m);
+    }
+    for (int e = lane; e < rows; e += 32) {
+      int f = sm[L.Ffb + e], u = sm[L.U + e], pe_e = sm[L.pe + e];
+      k.sum += f;
+      if (-(u + pe_e - pt) < 0 && f > 0) k.hadm = 1;
+      if (f > 0) k.cand = max(k.cand, pe_e + u);
+    }
+    enter_add(L, c, k.pos, k.cnt);
+  }
+  k = cluster_reduce(c, k, SinkEnterOp(), SinkEnter{0, 0, 0, PT_NEG, 0});
+  c.exc_t = k.sum - total;
+  c.hadm_t = k.hadm;
+  c.cand_t = k.cand;
+  return Enter{k.pos, k.cnt};
+}
+
+__device__ void local_relabel(const ClLayout& L, Ctx& c, int eps) {
+  for (int e = threadIdx.x; e < c.rows; e += kClThreads)
+    sm[L.pe + e] = pt_relabel(sm[L.cand_e + e], sm[L.hadm_e + e] != 0, sm[L.exc_e + e],
+                              sm[L.pe + e], eps);
+  for (int m = threadIdx.x; m < c.M; m += kClThreads)
+    sm[L.pm + m] = pt_relabel(sm[L.cand_m + m], sm[L.hadm_m + m] != 0, sm[L.exc_m + m],
+                              sm[L.pm + m], eps);
+  c.pt = pt_relabel(c.cand_t, c.hadm_t != 0, c.exc_t, c.pt, eps);
+  __syncthreads();
+}
+
+// Global price update (the one-SM global_update) on the post-push state
+// with the frozen prices.  One cluster barrier a sweep: the CTAs' column
+// minima (reductions) and the sink's partial cross together, and every CTA
+// finishes every column.  Returns the BF sweeps spent.
+__device__ int global_update(const ClLayout& L, Ctx& c, int eps, int bf_max) {
+  const int M = c.M, rows = c.rows;
+  const int pt = c.pt;
+  const PtDivisor dv(eps);
+  {
+    const PtDivisor dM(M);
+    for (int i = threadIdx.x; i < rows * M; i += kClThreads) {
+      int e = pt_floordiv(i, dM), m = i - e * M;
+      int cst = sm[L.C + i];
+      int f = sm[L.F + i];
+      bool adm = cst < PT_INF_COST;
+      int x = cst + sm[L.pe + e] - sm[L.pm + m];
+      int lf = adm ? pt_floordiv(x, dv) + 1 : PT_DINF;
+      int lr = adm ? pt_floordiv(-x, dv) + 1 : PT_DINF;
+      sm[L.PL + i] = sm[L.Uem + i] - f > 0 ? lf : PT_CLOSED;
+      sm[L.Lr + i] = f > 0 ? lr : PT_CLOSED;
+    }
+  }
+  int de = L.de0, de_n = L.de1, dm = L.dm0, dm_n = L.dm1;
+  for (int e = threadIdx.x; e < rows; e += kClThreads) sm[de + e] = sm[L.exc_e + e] < 0 ? 0 : PT_DINF;
+  for (int m = threadIdx.x; m < M; m += kClThreads) sm[dm + m] = sm[L.exc_m + m] < 0 ? 0 : PT_DINF;
+  int dt = c.exc_t < 0 ? 0 : PT_DINF;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const ClRowUnits ru(rows, M);
+  const ClColUnits cu(rows, M);
+  int* row_part = sm + L.part;
+  int* col_part = sm + L.cpart;
+  int sweeps = 0, par = 0;
+  bool changed = true;
+  while (changed && sweeps <= bf_max) {
+    int any = 0;    // this thread's rows moved (any sweep of the four)
+    int any_m = 0;  // this thread's columns moved
+    bool dt_moved = false;
+    Sweep red{PT_DINF, 0};
+    for (int k4 = 0; k4 < 4; ++k4) {
+      // EC rows: via machines (forward arcs) and via the fallback arc.
+      auto row_finish = [&](int e, int best) {
+        int rfb = sm[L.U + e] + sm[L.pe + e] - pt;
+        int via_t = (sm[L.sup + e] - sm[L.Ffb + e] > 0) ? pt_floordiv(rfb, dv) + 1 + dt : PT_DINF;
+        int nv = min(sm[de + e], min(best, via_t));
+        sm[de_n + e] = nv;
+        if (nv != sm[de + e]) any = 1;
+      };
+      for (int u = w; u < ru.n; u += kClWarps) {
+        int e, q, c0, c1;
+        ru.at(u, e, q, c0, c1);
+        int best = PT_DINF;
+        for (int ch = c0; ch < c1; ++ch) {
+          const int m = (ch * 32 + lane) * kQuad;
+          if (m >= M) continue;
+          const int4 l4 = quad(L.PL + e * M + m), d4 = quad(dm + m);
+#pragma unroll
+          for (int i = 0; i < kQuad; ++i) {
+            const int l = at4(l4, i);
+            best = l != PT_CLOSED ? min(best, l + at4(d4, i)) : best;
+          }
+        }
+        best = pt_warp_reduce(best, PtMin());
+        if (lane == 0) {
+          if (ru.segs == 1) row_finish(e, best);
+          else row_part[u] = best;
+        }
+      }
+      // Machine columns: this slab's minima via reverse arcs, per
+      // (column, row segment) unit, finished per column into rg of every
+      // CTA.
+      const int rg = L.rg + par * M;
+      auto send_min = [&](int m, int best, int t, int T) {
+        // A minimum of PT_DINF or more cannot lower dm (<= PT_DINF).
+        if (best < PT_DINF)
+          for (int j = t; j < c.k; j += T) red_min(rg + m, j, best);
+      };
+      for (int u = threadIdx.x; u < cu.n; u += kClThreads) {
+        int m, r, e0, e1;
+        cu.at(u, m, r, e0, e1);
+        int best = PT_DINF;
+        for (int e = e0; e < e1; ++e) {
+          int l = sm[L.Lr + e * M + m];
+          best = l != PT_CLOSED ? min(best, l + sm[de + e]) : best;
+        }
+        if (cu.segs == 1) send_min(m, best, 0, 1);
+        else col_part[u] = best;
+      }
+      if (ru.segs > 1) {
+        __syncthreads();
+        for (int e = threadIdx.x; e < rows; e += kClThreads) {
+          int best = row_part[e];
+          for (int r = 1; r < ru.segs; ++r) best = min(best, row_part[r * rows + e]);
+          row_finish(e, best);
+        }
+      }
+      const int any_rows = __syncthreads_or(any);
+      if (cu.segs > 1) {
+        const int T = spread(M);
+        for (int v = threadIdx.x; v < T * M; v += kClThreads) {
+          const int t = v / M, m = v - t * M;
+          int best = col_part[m];
+          for (int r = 1; r < cu.segs; ++r) best = min(best, col_part[r * M + m]);
+          send_min(m, best, t, T);
+        }
+      }
+      // Sink: via reverse machine arcs (this CTA's columns) and reverse
+      // fallback arcs (its rows), in warp 0.
+      int tb = PT_DINF;
+      if (w == 0) {
+        for (int m = c.m0 + lane; m < c.m1; m += 32)
+          if (sm[L.Fmt + m] > 0) tb = min(tb, pt_floordiv(-(sm[L.pm + m] - pt), dv) + 1 + sm[dm + m]);
+        for (int e = lane; e < rows; e += 32)
+          if (sm[L.Ffb + e] > 0)
+            tb = min(tb, pt_floordiv(-(sm[L.U + e] + sm[L.pe + e] - pt), dv) + 1 + sm[de + e]);
+      }
+      red = cluster_reduce(c, Sweep{tb, any_rows}, SweepOp(), Sweep{PT_DINF, 0});
+      // Every column: the CTAs' minima, and via the sink arc.
+      for (int m = threadIdx.x; m < M; m += kClThreads) {
+        const int best = sm[rg + m];
+        sm[rg + m] = kMinIdentity;
+        int via_t = (sm[L.cap + m] - sm[L.Fmt + m] > 0)
+                        ? pt_floordiv(sm[L.pm + m] - pt, dv) + 1 + dt : PT_DINF;
+        int nv = min(sm[dm + m], min(best, via_t));
+        sm[dm_n + m] = nv;
+        if (nv != sm[dm + m]) any_m = 1;
+      }
+      int dt_n = min(dt, red.tb);
+      if (dt_n != dt) dt_moved = true;
+      dt = dt_n;
+      int tmp = de; de = de_n; de_n = tmp;
+      tmp = dm; dm = dm_n; dm_n = tmp;
+      par ^= 1;
+      if (k4 < 3) __syncthreads();
+      else any_m = __syncthreads_or(any_m);
+    }
+    changed = red.any != 0 || any_m != 0 || dt_moved;
+    sweeps += 4;
+  }
+  int fm = 0;
+  if (w == 0) {
+    for (int e = lane; e < rows; e += 32) if (sm[de + e] < PT_DINF) fm = max(fm, sm[de + e]);
+    for (int m = c.m0 + lane; m < c.m1; m += 32) if (sm[dm + m] < PT_DINF) fm = max(fm, sm[dm + m]);
+    if (dt < PT_DINF) fm = max(fm, dt);
+  }
+  fm = cluster_reduce(c, fm, PtMax(), 0);
+  bool ok = !changed && fm < (1 << 26) / max(eps, 1);
+  if (ok) {
+    int dbig = fm + 1;
+    for (int e = threadIdx.x; e < rows; e += kClThreads) {
+      int d = sm[de + e] >= PT_DINF ? dbig : sm[de + e];
+      sm[L.pe + e] = max(sm[L.pe + e] - eps * d, PT_NEG_HALF);
+    }
+    for (int m = threadIdx.x; m < M; m += kClThreads) {
+      int d = sm[dm + m] >= PT_DINF ? dbig : sm[dm + m];
+      sm[L.pm + m] = max(sm[L.pm + m] - eps * d, PT_NEG_HALF);
+    }
+    int d = dt >= PT_DINF ? dbig : dt;
+    c.pt = max(c.pt - eps * d, PT_NEG_HALF);
+  }
+  __syncthreads();
+  // r2s (under rg's second parity) back to its identity for the next
+  // push sweep's column partials.
+  for (int m = threadIdx.x; m < M; m += kClThreads) sm[L.r2s + m] = 0;
+  return sweeps;
+}
+
+// knobs and stats as fused_ladder_kernel's.
+__global__ void __launch_bounds__(kClThreads, 1)
+fused_ladder_cluster_kernel(Planes g, ClLayout L, const int* knobs, int* stats) {
+  cg::cluster_group cluster = cg::this_cluster();
+  ClShared& s = shared();
+  Ctx c;
+  c.rank = (int)cluster.block_rank();
+  c.k = (int)cluster.num_blocks();
+  c.M = g.M;
+  const int E = g.E, M = g.M;
+  const int S = (E + c.k - 1) / c.k;
+  c.e0 = min(c.rank * S, E);
+  c.rows = min(S, E - c.e0);
+  const int share = (M + c.k - 1) / c.k;
+  c.m0 = min(c.rank * share, M);
+  c.m1 = min(c.m0 + share, M);
+  c.sp = 0;
+  c.exc_t = c.hadm_t = 0;
+  c.cand_t = PT_NEG;
+  load(g, L, c);
+  c.pt = g.pt[0];
+  const bool tel = g.ring != nullptr && c.rank == 0 && threadIdx.x == 0;
+  const int max_iter = knobs[4], max_iter_total = knobs[5];
+  const int global_every = knobs[6], bf_max = knobs[7];
+  const int total = knobs[8], adaptive = knobs[9];
+  // Every CTA of the cluster runs and holds its slab before any touches
+  // another's shared memory.
+  cluster_barrier();
+  int tot_it = 0, tot_bf = 0;
+  for (int k = 0; k < PT_NUM_PHASES; ++k) {
+    const int eps = knobs[k];
+    if (tot_it + 64 < max_iter_total) refine(L, c, eps, c.pt);
+    excesses(L, c, total);
+    Enter en{0, 0};
+    if (threadIdx.x < 32) enter_add(L, c, en.pos, en.cnt);
+    en = cluster_reduce(c, en, EnterOp(), Enter{0, 0});
+    int it = 0, bf = 0;
+    int next_gu = 0, gap = global_every, last_exc = 0;
+    while (true) {
+      const int exc_t = c.exc_t;
+      bool active = (en.cnt != 0 || exc_t > 0) && it < max_iter && tot_it + it < max_iter_total;
+      if (!active) break;
+      const long long pos = en.pos + max(exc_t, 0);
+      int tot_excess = pt_saturate(pos);
+      bool fired = adaptive > 0 ? it >= next_gu : it % global_every == 0;
+      if (tel) {
+        s.tel[kTrIter] = tot_it + it;
+        s.tel[kTrExcess] = tot_excess;
+        s.tel[kTrRows] = en.cnt & (kColUnit - 1);
+        s.tel[kTrCols] = en.cnt >> 16;
+        s.tel[kTrEps] = eps;
+        s.tel[kTrGu] = fired ? 1 : 0;
+        s.tel[kTrBf] = 0;
+        s.tel[kTrSat] = pos >= PT_EXCESS_SAT_THRESH ? 1 : 0;
+      }
+      en = push_sweep(L, c, total, fired);
+      if (fired) {
+        const int sweeps = global_update(L, c, eps, bf_max);
+        bf += sweeps;
+        if (tel) s.tel[kTrBf] = sweeps;
+        int gap_f = tot_excess <= last_exc / 2 ? min(gap * 2, global_every * 4) : global_every;
+        next_gu = it + gap_f;
+        gap = gap_f;
+        last_exc = tot_excess;
+      } else {
+        local_relabel(L, c, eps);
+      }
+      if (tel) {
+        const int cap = g.ring_cap;
+        int* r = g.ring + s.tel[kTrIter] % cap;
+#pragma unroll
+        for (int row = 0; row < 8; ++row) r[row * cap] = s.tel[row];
+      }
+      ++it;
+    }
+    if (c.rank == 0 && threadIdx.x == 0) stats[3 + k] = it;
+    tot_it += it;
+    tot_bf += bf;
+  }
+  excesses(L, c, total);
+  int nz = 0;
+  if (threadIdx.x < 32) {
+    for (int e = threadIdx.x; e < c.rows; e += 32) nz |= sm[L.exc_e + e] != 0;
+    for (int m = c.m0 + threadIdx.x; m < c.m1; m += 32) nz |= sm[L.exc_m + m] != 0;
+  }
+  nz = cluster_reduce(c, nz, PtOr(), 0);
+  // Back to global memory: each CTA its rows, rank 0 the [M] vectors.
+  const size_t base = (size_t)c.e0 * M;
+  for (int i = threadIdx.x; i < c.rows * M; i += kClThreads) g.F[base + i] = sm[L.F + i];
+  for (int e = threadIdx.x; e < c.rows; e += kClThreads) {
+    g.Ffb[c.e0 + e] = sm[L.Ffb + e];
+    g.pe[c.e0 + e] = sm[L.pe + e];
+  }
+  if (c.rank == 0) {
+    for (int m = threadIdx.x; m < M; m += kClThreads) {
+      g.Fmt[m] = sm[L.Fmt + m];
+      g.pm[m] = sm[L.pm + m];
+    }
+    if (threadIdx.x == 0) {
+      stats[0] = tot_it;
+      stats[1] = tot_bf;
+      stats[2] = (nz == 0 && c.exc_t == 0) ? 1 : 0;
+      g.pt[0] = c.pt;
+    }
+  }
+}
+
+}  // namespace cl
+
 }  // namespace
 
 // The launch's dynamic shared memory in bytes for E EC rows (mirrored by
 // ops/transport_fused.py::ladder_smem_bytes).
 extern "C" size_t pt_fused_ladder_smem_bytes(int E) { return ladder_smem_bytes(E); }
 
-// Plain C entry point.  ``ws`` is an int32 workspace of
-// 3 * E * M + 5 * E + 6 * M elements; ``ring`` is null or a zeroed
-// [8, ring_cap] int32 telemetry ring of its own; all pointers are device
-// pointers.
+// The cluster path's dynamic shared memory a CTA, in bytes, for an
+// [E, M] plane over `ctas` CTAs (mirrored by
+// ops/transport_fused.py::cluster_smem_bytes).
+extern "C" size_t pt_fused_ladder_cluster_smem_bytes(int E, int M, int ctas) {
+  return cluster_smem_bytes(E, M, ctas);
+}
+
+static cudaLaunchConfig_t cluster_config(int ctas, size_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+static cudaError_t cluster_attributes(int ctas, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cl::fused_ladder_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && ctas > 8)
+    err = cudaFuncSetAttribute(cl::fused_ladder_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// How many clusters of `ctas` CTAs, with the cluster path's shared memory
+// at [E, M], the card can hold at once (cudaOccupancyMaxActiveClusters);
+// 0 where it cannot launch one.
+extern "C" int pt_fused_ladder_max_clusters(int E, int M, int ctas) {
+  if (ctas < 2 || ctas > kMaxCtas) return 0;
+  const size_t smem = cluster_smem_bytes(E, M, ctas);
+  if (cluster_attributes(ctas, smem) != cudaSuccess) return 0;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(ctas, smem, 0, attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, cl::fused_ladder_cluster_kernel, &cfg) != cudaSuccess)
+    n = 0;
+  return n;
+}
+
+// Plain C entry point.  ``ctas`` is 1 for the one-SM kernel, or the CTAs
+// of the cluster path (2 to 16).  ``ws`` is, for the one-SM kernel, an
+// int32 workspace of 3 * E * M + 5 * E + 6 * M elements (the cluster path
+// takes none: null); ``ring`` is null or a zeroed [8, ring_cap] int32
+// telemetry ring of its own; all pointers are device pointers.
 extern "C" int pt_fused_ladder(const int* C, const int* U, const int* sup,
                                const int* cap, const int* Uem, int* F,
                                int* Ffb, int* Fmt, int* pe, int* pm, int* pt,
                                const int* knobs, int* stats, int* ws,
-                               int* ring, int E, int M, int ring_cap,
+                               int* ring, int E, int M, int ring_cap, int ctas,
                                void* stream) {
-  Planes p;
+  Planes p = {};
   p.C = C; p.U = U; p.sup = sup; p.cap = cap; p.Uem = Uem;
   p.F = F; p.Ffb = Ffb; p.Fmt = Fmt; p.pe = pe; p.pm = pm; p.pt = pt;
   p.E = E; p.M = M;
@@ -862,6 +1898,18 @@ extern "C" int pt_fused_ladder(const int* C, const int* U, const int* sup,
   p.ring_cap = ring_cap;
   // The entering-state counts pack rows and columns into one int.
   if (E >= kColUnit || M >= (1 << 15)) return (int)cudaErrorInvalidValue;
+  if (ctas != 1) {
+    if (ctas < 2 || ctas > kMaxCtas || M % kQuad != 0) return (int)cudaErrorInvalidValue;
+    const ClLayout L = cluster_layout(E, M, ctas);
+    const size_t smem = sizeof(int) * (size_t)L.ints;
+    cudaError_t err = cluster_attributes(ctas, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(ctas, smem, (cudaStream_t)stream, attr);
+    err = cudaLaunchKernelEx(&cfg, cl::fused_ladder_cluster_kernel, p, L, knobs, stats);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   int* q = ws;
   p.P = q; q += (size_t)E * M;
   p.Lf = q; q += (size_t)E * M;

@@ -11,6 +11,10 @@ ladder, and it never does the one in place of the other.
 The route's gate ``fits_vmem`` is the reference's VMEM budget, inherited
 unchanged so the port sends the same padded shapes to this kernel as the
 reference's accelerator policy does; it is not yet derived for the H100.
+Within it, ``ladder_ctas`` picks from the shape alone between B1's two
+paths, which give the same bits: one block on one SM with its planes in
+L2, or a thread-block cluster whose CTAs hold the planes' rows in their
+shared memory (the kernel source's note).
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ from poseidon_tpu_torch.ops.transport import (
 
 # The reference's working-set gate: aligned [E, M] elements.
 VMEM_ELEM_BUDGET = 160 * 1024
+# The fewest EC rows B1 runs as a cluster.  At 8 rows (one a CTA) the
+# cluster path was no faster than the one-SM kernel on wide planes
+# ([8, 1024] 1.360 against 1.365 ms, [8, 2048] 10.610 against 10.843);
+# from 16 rows it was 1.2x to 8.9x faster at every shape timed (NVIDIA
+# H100 80GB HBM3, 700 W; csrc/fused_ladder.cu's note).
+CLUSTER_MIN_ROWS = 16
 
 # B1's dynamic shared memory, as ``csrc/fused_ladder.cu`` sizes it at
 # launch (``ladder_smem_bytes``, exported as
@@ -55,6 +65,59 @@ def ladder_smem_bytes(e_pad: int) -> int:
     return SMEM_SCALAR_BYTES + 4 * (SMEM_PART_INTS + 3 * e_pad)
 
 
+# The cluster path's dynamic shared memory a CTA, as ``csrc/fused_ladder.cu``
+# lays it out (``cluster_layout``, exported as
+# ``pt_fused_ladder_cluster_smem_bytes``): a slot for the CTA's scalars and
+# reductions, then int32 arrays: five [S, M] planes of the CTA's S = ceil(E
+# / k) rows (C, Uem, F, the pushes P shared with the forward lengths, the
+# reverse lengths), eleven [S] row vectors, eight [M] column vectors (a
+# global update's four over four of the push sweep's), the [M + 1],
+# [M] and [M] buffers the other CTAs combine into, and the row- and
+# column-segment partials.
+CLUSTER_SCALAR_BYTES = 1152
+CLUSTER_THREADS = 512
+CLUSTER_WARPS = CLUSTER_THREADS // 32
+# Cluster sizes the route takes, in order of preference: 8 is the portable
+# size; 16 needs the card's non-portable cluster size.
+CLUSTER_CTAS = (8, 16)
+# Shared memory one block may use on the H100.
+SMEM_LIMIT = 227 * 1024
+# The cluster path's cluster barriers (csrc/fused_ladder.cu's note): per
+# push/relabel iteration, per Bellman-Ford sweep, per global update (its
+# convergence check) and per epsilon phase (the excesses and the entering
+# state).
+CLUSTER_BARRIERS = {"iteration": 3, "sweep": 1, "update": 1, "phase": 2}
+
+
+def cluster_smem_bytes(e_pad: int, m_pad: int, ctas: int) -> int:
+    """The cluster path's dynamic shared memory a CTA, in bytes, for an
+    ``[e_pad, m_pad]`` plane over ``ctas`` CTAs (each array starts on 16
+    bytes)."""
+    s = -(-e_pad // ctas)
+
+    def r4(n):
+        return -(-n // 4) * 4
+
+    ints = (5 * r4(s * m_pad) + 11 * r4(s) + 8 * r4(m_pad) + r4(m_pad + 1)
+            + 2 * r4(m_pad) + r4(4 * CLUSTER_WARPS) + r4(4 * CLUSTER_THREADS))
+    return CLUSTER_SCALAR_BYTES + 4 * ints
+
+
+def ladder_ctas(e_pad: int, m_pad: int) -> int:
+    """B1's CTAs at ``[e_pad, m_pad]``: from ``CLUSTER_MIN_ROWS`` rows and
+    for a multiple of 4 columns (the cluster path loads a plane four
+    columns at a time; every padded width is one), the first of
+    ``CLUSTER_CTAS`` whose shares of the planes fit a CTA's shared
+    memory; else 1, the one-SM kernel.  A property of the shape alone:
+    both paths give the same bits."""
+    if e_pad < CLUSTER_MIN_ROWS or m_pad % 4:
+        return 1
+    for k in CLUSTER_CTAS:
+        if cluster_smem_bytes(e_pad, m_pad, k) <= SMEM_LIMIT:
+            return k
+    return 1
+
+
 def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
     """Launch B1 on prepared operands; updates the flow/price state in
     place and returns the int32 stats ``[iters, bf, clean,
@@ -64,10 +127,14 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
     F, Ffb, Fmt, pe, pm, pt = state
     E, M = F.shape
     dev = F.device
+    ctas = ladder_ctas(E, M)
     so = _kernels.lib()
     ck = _kernels.check
     stats = torch.empty(3 + NUM_PHASES, dtype=I32, device=dev)
-    ws = torch.empty(3 * E * M + 5 * E + 6 * M, dtype=I32, device=dev)
+    # The one-SM kernel's workspace; the cluster path holds its state in
+    # shared memory.
+    ws = (torch.empty(3 * E * M + 5 * E + 6 * M, dtype=I32, device=dev)
+          if ctas == 1 else None)
     args = [
         ck(ops["C"], "C", (E, M), dev), ck(ops["U"], "U", (E,), dev),
         ck(ops["supply"], "supply", (E,), dev),
@@ -75,13 +142,16 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
         ck(F, "F", (E, M), dev), ck(Ffb, "Ffb", (E,), dev),
         ck(Fmt, "Fmt", (M,), dev), ck(pe, "pe", (E,), dev),
         ck(pm, "pm", (M,), dev), ck(pt, "pt", (1,), dev),
-        ck(knobs, "knobs", (10,), dev), stats.data_ptr(), ws.data_ptr(),
+        ck(knobs, "knobs", (10,), dev), stats.data_ptr(),
+        None if ws is None else ws.data_ptr(),
     ]
     cap = 0 if ring is None else ring.shape[1]
     ring_ptr = (None if ring is None
                 else ck(ring, "ring", (TELEM_ROWS, cap), dev))
     _kernels.LAUNCHES["fused_ladder"] += 1
-    rc = so.pt_fused_ladder(*args, ring_ptr, E, M, cap,
+    if ctas > 1:
+        _kernels.LAUNCHES["fused_ladder_cluster"] += 1
+    rc = so.pt_fused_ladder(*args, ring_ptr, E, M, cap, ctas,
                             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.launch_check(rc, "fused_ladder")
     return stats

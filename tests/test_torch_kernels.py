@@ -257,6 +257,115 @@ def test_fused_ladder_shared_memory_covers_the_gate():
         assert need < TF.ladder_smem_bytes(e) <= 227 * 1024
 
 
+def _admitted_shapes():
+    """Every padded shape B1's route admits (``fits_vmem``)."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    m_pads = sorted({T.bucket_size(n) for n in range(1, 41_000)})
+    e_pads = [8 << k for k in range(10)]
+    return [(e, m) for e in e_pads for m in m_pads if TF.fits_vmem(e, m)]
+
+
+def test_fused_ladder_cluster_gate_fits_shared_memory():
+    """At every shape the route admits, B1's gate picks the one-SM kernel
+    or a cluster size of ``CLUSTER_CTAS`` whose shares of the planes fit
+    one H100 block's shared memory (227 KB); it picks by shape alone."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    clustered = 0
+    for e, m in _admitted_shapes():
+        k = TF.ladder_ctas(e, m)
+        assert k == 1 or k in TF.CLUSTER_CTAS, (e, m, k)
+        if k > 1:
+            clustered += 1
+            assert TF.cluster_smem_bytes(e, m, k) <= 227 * 1024, (e, m, k)
+            assert e >= TF.CLUSTER_MIN_ROWS
+    assert clustered > 0
+
+
+@pytest.mark.parametrize("e,m,ctas", [
+    (128, 256, 8), (128, 256, 16), (32, 256, 8), (20, 300, 8), (9, 64, 16),
+    (64, 1024, 16), (1024, 128, 8), (8, 20480, 16), (130, 200, 8),
+    (30, 2560, 16), (33, 100, 8)])
+def test_fused_ladder_cluster_smem_mirror_matches_the_kernel(e, m, ctas):
+    """The Python mirror of the cluster path's shared memory a CTA equals
+    the formula of ``cluster_layout`` in ``csrc/fused_ladder.cu``: the
+    scalar slot plus every array it takes, read from the source and
+    evaluated at [e, m] over ``ctas`` CTAs.  On the card, chip_smoke.py
+    holds the mirror to the compiled function at every routed shape."""
+    import re
+    from pathlib import Path
+
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    src = (Path(TF.__file__).parent / "csrc" / "fused_ladder.cu").read_text()
+    body = src[src.index("ClLayout cluster_layout(int E, int M, int k) {"):]
+    body = body[:body.index("\n}\n")]
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (kClThreads|kClSharedBytes) = (\d+);", src)}
+    assert set(consts) == {"kClThreads", "kClSharedBytes"}
+    env = {"S": -(-e // ctas), "M": m, "kClThreads": consts["kClThreads"],
+           "kClWarps": consts["kClThreads"] // 32}
+    takes = re.findall(r"take\(([^()]*)\)", body)
+    assert len(takes) >= 20
+    # take() starts every array on 16 bytes.
+    assert "o += (n + 3) & ~3;" in body
+    ints = consts["kClSharedBytes"] // 4 + sum(
+        -(-eval(t, {}, env) // 4) * 4 for t in takes)
+    assert TF.cluster_smem_bytes(e, m, ctas) == 4 * ints
+
+
+def test_fused_ladder_cluster_gate_routes_the_burst_and_keeps_the_extremes():
+    """The burst's coarse ladders, [128, 256] and [32, 256], take the
+    cluster path; the gate's wide extreme [8, 20480] (too few rows, and
+    planes past a cluster's shared memory) and the churn width [128,
+    1280] (planes past it) keep the one-SM kernel.  The tall extreme
+    [1024, 128] fits 16 CTAs and takes them."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    assert TF.ladder_ctas(128, 256) == 8
+    assert TF.ladder_ctas(32, 256) == 8
+    assert TF.ladder_ctas(8, 20480) == 1
+    assert TF.ladder_ctas(128, 1280) == 1
+    assert TF.ladder_ctas(8, 256) == 1
+    assert TF.ladder_ctas(1024, 128) == 16
+    # Four columns a lane: a width off 4 keeps the one-SM kernel.
+    assert TF.ladder_ctas(128, 254) == 1
+
+
+@pytest.mark.parametrize("E,M", [(128, 256), (8, 20480)])
+def test_fused_ladder_wrapper_passes_the_gate_and_counts(monkeypatch, E, M):
+    """B1's wrapper hands its entry point the gate's CTA count, and a
+    workspace only for the one-SM kernel; it counts every launch in
+    ``fused_ladder`` and the cluster path's also in
+    ``fused_ladder_cluster``."""
+    from types import SimpleNamespace
+
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    calls = []
+    fake = SimpleNamespace(pt_fused_ladder=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(_kernels, "lib", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device="meta")
+
+    ops = dict(C=z(E, M), U=z(E), supply=z(E), cap=z(M), Uem=z(E, M))
+    state = (z(E, M), z(E), z(M), z(E), z(M), z(1))
+    n0 = dict(_kernels.LAUNCHES)
+    TF.fused_ladder(ops, state, z(10))
+    ctas = TF.ladder_ctas(E, M)
+    assert len(calls) == 1
+    *_, ws, ring, e, m, cap, got, stream = calls[0]
+    assert (e, m, cap, got, ring) == (E, M, 0, ctas, None)
+    assert (ws is None) == (ctas > 1)
+    assert _kernels.LAUNCHES["fused_ladder"] == n0["fused_ladder"] + 1
+    assert (_kernels.LAUNCHES["fused_ladder_cluster"]
+            == n0["fused_ladder_cluster"] + (ctas > 1))
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -299,6 +408,68 @@ def test_kernel_matches_plain_on_card(cuda_device, impl, E, M):
     np.testing.assert_array_equal(small, small0)
     for k in keys:
         assert _kernels.LAUNCHES[k] > n0[k], k
+
+
+def _b1_path_cases():
+    """(E, M, CTAs, ring cap) for B1's two paths: the one-SM kernel and
+    each cluster size whose shares of the planes fit, at the burst's
+    coarse shapes, rows and columns off the CTA count and off 32, fewer
+    rows than CTAs, and the gate's extremes."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    out = []
+    for E, M in ((128, 256), (32, 256), (20, 300), (40, 300), (64, 1000),
+                 (9, 64), (130, 200), (64, 1024), (32, 2560), (1024, 128),
+                 (8, 20480)):
+        for ctas in (1,) + TF.CLUSTER_CTAS:
+            if ctas == 1 or TF.cluster_smem_bytes(E, M, ctas) <= TF.SMEM_LIMIT:
+                out += [(E, M, ctas, 0), (E, M, ctas, 512)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,ctas,cap", _b1_path_cases())
+def test_fused_ladder_paths_match_plain_on_card(cuda_device, monkeypatch, E,
+                                                M, ctas, cap):
+    """B1 with the CTA count handed to its entry point (1: the one-SM
+    kernel; 8 or 16: the cluster path): the flows and the whole small
+    result (prices, stats with the per-phase iterations, and the ring at
+    ``cap`` > 0) bit-equal to the plain ladder's; one B1 launch, counted
+    in ``fused_ladder_cluster`` exactly when it took the cluster path."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    monkeypatch.setattr(TF, "ladder_ctas", lambda e, m: ctas)
+    big, vec, scale = _packed(E, M, 3)
+    kw = dict(max_iter=8192, scale=scale, device=cuda_device, telem_cap=cap)
+    n0 = {k: _kernels.LAUNCHES[k]
+          for k in ("fused_ladder", "fused_ladder_cluster")}
+    F, small = T._solve_device_packed(big, vec, impl="fused", **kw)
+    torch.cuda.synchronize()
+    launched = _kernels.LAUNCHES["fused_ladder"] - n0["fused_ladder"]
+    clustered = (_kernels.LAUNCHES["fused_ladder_cluster"]
+                 - n0["fused_ladder_cluster"])
+    F0, small0 = T._solve_device_packed(big, vec, impl="lax", **kw)
+    np.testing.assert_array_equal(F.cpu().numpy(), F0.cpu().numpy())
+    np.testing.assert_array_equal(small, small0)
+    assert launched == 1
+    assert clustered == (launched if ctas > 1 else 0)
+
+
+@pytest.mark.cuda
+def test_fused_ladder_gate_takes_the_cluster_on_card(cuda_device):
+    """Through the gate alone, the burst's coarse shape [128, 256] runs
+    on the cluster path (one launch, counted in both counters) and
+    matches the plain ladder."""
+    big, vec, scale = _packed(128, 256, 5)
+    kw = dict(max_iter=8192, scale=scale, device=cuda_device)
+    n0 = {k: _kernels.LAUNCHES[k]
+          for k in ("fused_ladder", "fused_ladder_cluster")}
+    F, small = T._solve_device_packed(big, vec, impl="fused", **kw)
+    assert {k: _kernels.LAUNCHES[k] - n for k, n in n0.items()} == {
+        "fused_ladder": 1, "fused_ladder_cluster": 1}
+    F0, small0 = T._solve_device_packed(big, vec, impl="lax", **kw)
+    np.testing.assert_array_equal(F.cpu().numpy(), F0.cpu().numpy())
+    np.testing.assert_array_equal(small, small0)
 
 
 @pytest.mark.cuda
