@@ -198,6 +198,14 @@ class RoundMetrics:
     admission_deferred: int = 0
     admission_staleness_s: float = 0.0
     placements_per_sec: float = 0.0
+    # Contention: band groups solved this round (one per pass of
+    # _solve_banded's loop; 2 for a chained wave), EC rows whose members
+    # have waited a round or more (their unscheduled cost escalated), and
+    # the oldest pending task's wait in rounds.  Port-only fields: the
+    # reference's wire drops them (from_dict ignores unknown keys).
+    band_groups: int = 0
+    escalated_ecs: int = 0
+    max_wait_rounds: int = 0
 
     # Serialization schema version: bumped whenever a field is renamed
     # or its meaning changes (pure additions keep the version — from_dict
@@ -855,6 +863,9 @@ class RoundPlanner:
             num_machines=mt.num_machines,
         )
         metrics.admission_staleness_s = round(adm_stale, 6)
+        waits = ecs.max_wait_rounds
+        metrics.escalated_ecs = int((waits > 0).sum())
+        metrics.max_wait_rounds = int(waits.max(initial=0))
         if ecs.num_ecs == 0:
             st.round_index += 1
             self._last_generation = st.generation
@@ -1246,14 +1257,17 @@ class RoundPlanner:
                 on_band_reset,
             )
             if chained is not None:
+                metrics.band_groups = 2
                 return chained
         pipe = self._maybe_pipeline(len(remaining))
         first_band, first_idx = None, None
         while remaining:
+            t_group = time.perf_counter()
             n_bands, idx = self._next_band_group(
                 remaining, bands, ecs, mt, committed_cpu, committed_ram,
                 committed_net,
             )
+            metrics.band_groups += 1
             band = int(remaining[0])  # warm-frame key: group's largest
             if first_band is None:
                 first_band, first_idx = band, idx
@@ -1337,6 +1351,14 @@ class RoundPlanner:
                 # bands write DISJOINT rows of flows_full, so a worker
                 # reading this band's rows races nothing.
                 on_band(idx, not remaining, flows_full)
+            # One interval per group, beside (not around) its stage
+            # spans, which keep the round as their parent.
+            _trace.record(
+                "round.band_group", t_group, time.perf_counter(),
+                self._round_span_id(), nested=True, bands=n_bands,
+                rows=int(idx.size), supply=int(ecs_b.supply.sum()),
+                merged=n_bands > 1,
+            )
 
         # No small-band floor here (unlike the cross-band speculation
         # above): the cross-round spec runs while the worker is

@@ -567,6 +567,7 @@ SOLVE_TIERS = ("none", "quiet", "pruned", "dense", "sharded",
 _ROUND_COUNTERS = (
     "placed", "preempted", "migrated", "device_calls",
     "fresh_compiles", "iterations", "bf_sweeps", "repair_firings",
+    "band_groups",
 )
 
 

@@ -10,7 +10,9 @@ they feed, against the JAX package's.
   precompiled planner's next round counts no first sight where an
   unprecompiled one counts some;
 - ``RoundMetrics.to_dict()`` carries the reference's key set, ``schema``
-  included, and ``from_dict`` round-trips (across packages too);
+  included, and the port's three contention fields beside it, and
+  ``from_dict`` round-trips (across packages too, where the reference
+  drops the port's fields);
 - the planner's ``round`` span parents its stage spans, and
   ``utils/stagetimer`` is the tracer's aggregate mode, as in the
   reference.
@@ -18,6 +20,8 @@ they feed, against the JAX package's.
 The JAX package is imported inside the tests that compare with it, so
 the ``cuda`` test also runs on the card, which has no JAX.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,6 +38,8 @@ from poseidon_tpu_torch.utils.ids import generate_uuid, task_uid
 from poseidon_tpu_torch.utils.numerics import SaturationError, certify_i32
 
 I32_MAX = (1 << 31) - 1
+# RoundMetrics fields the port has and the reference lacks.
+PORT_ONLY = {"band_groups", "escalated_ecs", "max_wait_rounds"}
 
 
 def _arrays(case: str, seed: int):
@@ -225,19 +231,27 @@ def test_round_metrics_wire_is_the_reference_s():
     from poseidon_tpu.graph.instance import RoundMetrics as JRoundMetrics
 
     t, j = RoundMetrics().to_dict(), JRoundMetrics().to_dict()
-    assert set(t) == set(j) and t["schema"] == j["schema"] == 1
+    assert set(t) - set(j) == PORT_ONLY and set(j) <= set(t)
+    assert t["schema"] == j["schema"] == 1
     assert RoundMetrics.SCHEMA == JRoundMetrics.SCHEMA
     m = RoundMetrics(round_index=3, placed=7, gap_bound=float("inf"),
                      fresh_compiles=2, implicit_transfers=1,
                      numeric_anomalies=4, lock_contention_ns=99,
                      solve_tier="host_greedy", converged=False,
-                     solve_phase_iters=[1, 2, 3, 4])
+                     solve_phase_iters=[1, 2, 3, 4], band_groups=2,
+                     escalated_ecs=5, max_wait_rounds=3)
     d = m.to_dict()
     assert d["gap_bound"] == "inf"
+    assert (d["band_groups"], d["escalated_ecs"], d["max_wait_rounds"]) \
+        == (2, 5, 3)
     assert RoundMetrics.from_dict(d) == m
-    # Across packages: each side reads the other's wire.
-    assert JRoundMetrics.from_dict(d).to_dict() == d
-    assert RoundMetrics.from_dict(JRoundMetrics.from_dict(d).to_dict()) == m
+    # Across packages: each side reads the other's wire; the reference
+    # drops the port's fields, which then read their defaults.
+    shared = {k: v for k, v in d.items() if k not in PORT_ONLY}
+    assert JRoundMetrics.from_dict(d).to_dict() == shared
+    assert RoundMetrics.from_dict(JRoundMetrics.from_dict(d).to_dict()) \
+        == dataclasses.replace(m, band_groups=0, escalated_ecs=0,
+                               max_wait_rounds=0)
     # Forward compatibility: unknown keys dropped, missing ones default;
     # a newer schema refuses.
     assert RoundMetrics.from_dict({"placed": 5, "future": 1}).placed == 5
