@@ -12,7 +12,9 @@ traffic), on the CPU at a small size.
   bands, and drains after the window; the control, half of each round's
   answers dropped, and the same cluster driven by the burst loop (which
   submits a whole batch a step, so its backlog grows past what the
-  drain can place) each read ``correct`` false.
+  drain can place) each read ``correct`` false;
+- the loop's in-process ingest enters the same tasks, with the same
+  replies and the same intake log, as the servicer's handlers.
 """
 
 import json
@@ -198,3 +200,58 @@ def test_backlog_fault_is_caught(root, case):
         # Every other check holds: only the growing backlog fails it.
         assert checks["never_placed"] > 0
         assert sum(checks.values()) == checks["never_placed"]
+
+
+def test_backlog_ingest_matches_the_handlers():
+    """Pods submitted by the backlog loop's ``Ingest`` equal, field for
+    field but their uid and acceptance time, those the servicer's
+    ``TaskSubmitted`` makes from the request the harness sends; both
+    ways reply OK, complete alike, and log each call in the intake log
+    the reference reads."""
+    import dataclasses
+
+    import numpy as np
+
+    from portbench import harness, workload
+    from portbench.reference import (COMPLETE, SUBMIT, TASK_COMPLETED_OK,
+                                     TASK_SUBMITTED_OK)
+    from portbench.service import Service
+    from poseidon_tpu_torch.graph.state import TaskState
+
+    spec = harness.cell_spec(CELL)
+    cfg = json.loads(json.dumps(spec.config))
+    cfg["machines"]["count"] = 4
+    svc = Service(cfg, "cpu", False)
+    try:
+        ingest = harness._load("loops", "backlog", harness.ROOT).Ingest(svc)
+        b = workload.burst_batch(cfg, 3100000029, 1)
+        n = 48
+        cpus, rams = b.cpu[:n].tolist(), b.ram[:n].tolist()
+        mine = (b.uid[:n] + (1 << 31)).tolist()
+        theirs = b.uid[:n].tolist()
+        assert (svc.submit(theirs, [b.job] * n, cpus, rams)
+                == TASK_SUBMITTED_OK).all()
+        assert (ingest.submit(mine, b.job, cpus, rams)
+                == TASK_SUBMITTED_OK).all()
+        tasks = svc.servicer.state.tasks
+
+        def fields(uid):
+            d = dataclasses.asdict(tasks[uid])
+            del d["uid"], d["accepted_at"]
+            return d
+
+        for u, v in zip(mine, theirs):
+            assert fields(u) == fields(v)
+            assert tasks[u].ec_id == tasks[v].ec_id
+        assert len({tasks[u].ec_id for u in mine}) == len(set(cpus))
+        assert (ingest.complete(mine[:10]) == TASK_COMPLETED_OK).all()
+        assert (svc.complete(theirs[:10]) == TASK_COMPLETED_OK).all()
+        assert all(tasks[u].state == TaskState.COMPLETED
+                   for u in mine[:10] + theirs[:10])
+        kind = np.asarray(svc.intake.kind)
+        uid = np.asarray(svc.intake.uid)
+        assert set(uid[kind == SUBMIT].tolist()) == set(mine + theirs)
+        assert set(uid[kind == COMPLETE].tolist()) == set(
+            mine[:10] + theirs[:10])
+    finally:
+        svc.stop()
