@@ -158,6 +158,7 @@ phases alone, with no kernel comparison and no result line.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -352,6 +353,31 @@ def check_smem() -> None:
         log(f"  B1 cluster path: {k} CTAs at "
             f"{sum(v[0] == k for v in routed.values())} shapes, up to "
             f"{routed[(e, m)][1]} bytes a CTA at [{e}, {m}] ({n} such "
+            "clusters fit the card); kernel and mirror agree")
+    # The column cluster likewise, at every shape its gate takes.
+    slabbed = {}
+    for e in (8 << k for k in range(10)):
+        for m in m_pads:
+            if not TF.fits_vmem(e, m) or TF.ladder_ctas(e, m) > 1:
+                continue
+            k = TF.ladder_slab_ctas(e, m)
+            if k == 1:
+                continue
+            c_bytes = so.pt_fused_ladder_columns_smem_bytes(e, m, k)
+            if c_bytes != TF.slab_smem_bytes(e, m, k):
+                fail(f"B1 column cluster shared memory at [{e}, {m}] over "
+                     f"{k} CTAs: kernel {c_bytes} bytes, mirror "
+                     f"{TF.slab_smem_bytes(e, m, k)}")
+            slabbed[(e, m)] = (k, c_bytes)
+    for k in sorted({k for k, _ in slabbed.values()}):
+        e, m = max((em for em, v in slabbed.items() if v[0] == k),
+                   key=lambda em: slabbed[em][1])
+        n = so.pt_fused_ladder_columns_max_clusters(e, m, k)
+        if n < 1:
+            fail(f"no column cluster of {k} CTAs fits the card at [{e}, {m}]")
+        log(f"  B1 column cluster: {k} CTAs at "
+            f"{sum(v[0] == k for v in slabbed.values())} shapes, up to "
+            f"{slabbed[(e, m)][1]} bytes a CTA at [{e}, {m}] ({n} such "
             "clusters fit the card); kernel and mirror agree")
     from poseidon_tpu_torch.ops import transport_coarse as TC
 
@@ -616,20 +642,22 @@ def check_fused(cases, l2_rate) -> list:
     for label, big, vec, scale in cases:
         E, M = big.shape[1:]
         ctas = TF.ladder_ctas(E, M) if TF.fits_vmem(E, M) else 1
+        counter, path, barriers = ("fused_ladder_cluster", "row cluster",
+                                   TF.CLUSTER_BARRIERS)
+        if ctas == 1 and TF.fits_vmem(E, M):
+            ctas = TF.ladder_slab_ctas(E, M)
+            counter, path, barriers = ("fused_ladder_columns",
+                                       "column cluster", TF.SLAB_BARRIERS)
         one_sm = None
         if ctas > 1:
-            gate = TF.ladder_ctas
-            TF.ladder_ctas = lambda e, m: 1
-            try:
+            with _b1_path(1):
                 one_sm = _ring_checks(label, big, vec, scale, "fused")
-            finally:
-                TF.ladder_ctas = gate
-        n0 = _kernels_launches("fused_ladder_cluster")
+        n0 = _kernels_launches(counter)
         err, ms, ms_off, reads, Fk, sk = _ring_checks(label, big, vec,
                                                       scale, "fused")
-        if ctas > 1 and _kernels_launches("fused_ladder_cluster") == n0:
-            fail(f"B1 {label}: the gate sent [{E}, {M}] to the cluster "
-                 "path but no cluster launch was counted")
+        if ctas > 1 and _kernels_launches(counter) == n0:
+            fail(f"B1 {label}: the gate sent [{E}, {M}] to a cluster path "
+                 f"but no launch was counted in {counter}")
         o = E + E + M + 1
         iters, bf = int(sk[o]), int(sk[o + 1])
         plain_ms = _time_cuda(lambda: _run_route(big, vec, scale, "lax"), 1)
@@ -659,22 +687,20 @@ def check_fused(cases, l2_rate) -> list:
             err1, ms1, ms1_off, reads1, F1, s1 = one_sm
             cluster_floor_ms = ops / (ctas * INT32_OPS_PER_S / sms) * 1e3
             row.update(one_sm_err=err1, one_sm_ms=ms1,
-                       one_sm_ms_ring_off=ms1_off,
+                       one_sm_ms_ring_off=ms1_off, path=path,
                        cluster_floor_ms=cluster_floor_ms,
-                       cluster_barriers=dict(TF.CLUSTER_BARRIERS))
+                       cluster_barriers=dict(barriers))
             log(f"  B1 {label} [{E}, {M}] one-SM kernel: max_abs_err "
                 f"{err1} (ring included), {ms1:.3f} ms with the ring, "
-                f"{ms1_off:.3f} without; cluster path ({ctas} CTAs) "
+                f"{ms1_off:.3f} without; {path} ({ctas} CTAs) "
                 f"{ms:.3f} / {ms_off:.3f} ms, {ms1 / ms:.2f}x; cluster "
                 f"floor {cluster_floor_ms:.3f} ms (int32 operations at "
-                f"{ctas} SMs' share); cluster barriers "
-                f"{TF.CLUSTER_BARRIERS}")
+                f"{ctas} SMs' share); cluster barriers {barriers}")
             if err1 != 0 or _max_err([F1, s1], [Fk, sk]) != 0:
-                fail(f"B1's one-SM kernel and cluster path differ at "
-                     f"{label}")
+                fail(f"B1's one-SM kernel and {path} differ at {label}")
             if reads1 != reads:
                 fail(f"B1 {label}: {reads1} host reads on the one-SM "
-                     f"kernel, {reads} on the cluster path")
+                     f"kernel, {reads} on the {path}")
         rows.append(row)
         log(f"  B1 {label} [{E}, {M}]: max_abs_err {err} (ring included), "
             f"iters {iters}, bf {bf}, clean {int(sk[o + 2])}; kernel "
@@ -690,6 +716,137 @@ def check_fused(cases, l2_rate) -> list:
             fail(f"B1 differs from its plain version at {label}")
         if not int(sk[o + 2]):
             fail(f"B1 solve at {label} did not converge")
+    return rows
+
+
+@contextlib.contextmanager
+def _b1_path(slab):
+    """B1's gates pinned: the row cluster shut, the column cluster at
+    ``slab`` CTAs (1: the one-SM kernel)."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    gates = TF.ladder_ctas, TF.ladder_slab_ctas
+    TF.ladder_ctas = lambda e, m: 1
+    TF.ladder_slab_ctas = lambda e, m: slab
+    try:
+        yield
+    finally:
+        TF.ladder_ctas, TF.ladder_slab_ctas = gates
+
+
+def _b1_kernel_ms(fn, reps) -> float:
+    """Device milliseconds of B1's launch per call of ``fn`` (a solve that
+    launches B1 once): CUDA events around the wrapper's launch alone."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    real, events = TF.fused_ladder, []
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    fn()
+    TF.fused_ladder = timed
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        TF.fused_ladder = real
+    torch.cuda.synchronize()
+    if len(events) != reps:
+        fail(f"B1 timing: {len(events)} launches in {reps} solves")
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+# The planes the row cluster leaves to the column cluster or the one-SM
+# kernel: 8 rows (the backlog's band 1 pads its ~6 rows to 8) at the
+# widths timed for the column cluster's crossover, of which the backlog
+# runs [8, 256] and [8, 10240] every round; and taller planes whose row
+# shares do not fit a CTA.
+SKINNY_SHAPES = tuple((8, m) for m in (64, 128, 256, 512, 1024, 2048, 4096,
+                                       10240)) + ((16, 5120), (32, 4096),
+                                                  (64, 2048))
+SKINNY_BACKLOG = ((8, 256), (8, 10240))
+# A full run's planes: the backlog's two and one taller plane, each the
+# column gate routes, checked for bit-equality alone (``--b1`` times them
+# all).
+SKINNY_ROUTED = SKINNY_BACKLOG + ((32, 4096),)
+SKINNY_SMS = 16
+
+
+def check_skinny(shapes=SKINNY_SHAPES, timed=True) -> list:
+    """B1 on the planes the row cluster leaves, each path forced in turn
+    on one seeded instance a shape: the one-SM kernel and the column
+    cluster at each size whose slabs fit.  Each bit-equal to the plain
+    ladder with the ring (the column cluster also without it).  With
+    ``timed``, each path is timed (B1's launch on the card by CUDA events,
+    and the whole solve) and, at the backlog's two shapes, B2's tiled
+    route too for reference.  The bound: the int32 operations at
+    ``SKINNY_SMS`` SMs' share of the card's rate."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    rows = []
+    for E, M in shapes:
+        inst = _instance(E, M, SEED + 7, supply_lo=500, supply_hi=1500,
+                         cap_lo=1, cap_hi=12)
+        big, vec, scale = _pack(*inst)
+        Fp, sp = _run_route(big, vec, scale, "lax")
+        o = E + E + M + 1
+        iters, bf = int(sp[o]), int(sp[o + 1])
+        ops = E * M * (OPS_PER_CELL_ITER * iters + OPS_PER_CELL_BF * bf
+                       + OPS_PER_CELL_PHASE * NUM_PHASES)
+        row = dict(shape=[E, M], iters=iters, bf=bf, ops=ops,
+                   gate=TF.ladder_slab_ctas(E, M),
+                   bound_ms=ops / (SKINNY_SMS * INT32_OPS_PER_S / sms) * 1e3,
+                   paths={})
+        paths = [("one_sm", 1)] + [
+            (f"columns_{k}", k) for k in TF.CLUSTER_CTAS
+            if TF.slab_smem_bytes(E, M, k) <= TF.SMEM_LIMIT]
+        reps = 3 if E * M >= 32768 else 10
+        for name, k in paths:
+            with _b1_path(k):
+                n0 = _kernels_launches("fused_ladder_columns")
+                F, sk = _run_route(big, vec, scale, "fused")
+                if _kernels_launches("fused_ladder_columns") - n0 != (k > 1):
+                    fail(f"B1 [{E}, {M}] {name}: the column counter moved "
+                         f"{_kernels_launches('fused_ladder_columns') - n0}")
+                err = _max_err([F, sk], [Fp, sp])
+                if k > 1:
+                    Fo, so = _run_route(big, vec, scale, "fused", telem_cap=0)
+                    err = max(err, _max_err([Fo, so], [F, sk[:so.size]]))
+                def run():
+                    return _run_route(big, vec, scale, "fused")
+
+                row["paths"][name] = dict(
+                    err=err,
+                    kernel_ms=_b1_kernel_ms(run, reps) if timed else None,
+                    solve_ms=_time_cuda(run, reps) if timed else None)
+            if err != 0:
+                fail(f"B1 [{E}, {M}] {name} differs from the plain ladder")
+        if timed and (E, M) in SKINNY_BACKLOG:
+            Ft, st = _run_route(big, vec, scale, "tiled")
+            row["paths"]["tiled"] = dict(
+                err=_max_err([Ft, st], [Fp, sp]), kernel_ms=None,
+                solve_ms=_time_cuda(
+                    lambda: _run_route(big, vec, scale, "tiled"), reps))
+            if row["paths"]["tiled"]["err"] != 0:
+                fail(f"B2 [{E}, {M}] differs from the plain ladder")
+        one = row["paths"]["one_sm"]["kernel_ms"]
+        log(f"  B1 [{E}, {M}]: iters {iters}, bf {bf}, gate "
+            f"{row['gate']} CTAs, bound {row['bound_ms']:.4f} ms at "
+            f"{SKINNY_SMS} SMs; " + "; ".join(
+                f"{n} err {v['err']}" + ("" if not timed else " kernel "
+                + ("-" if v["kernel_ms"] is None else
+                   f"{v['kernel_ms']:.3f} ms ({one / v['kernel_ms']:.2f}x)")
+                + f" solve {v['solve_ms']:.3f} ms")
+                for n, v in row["paths"].items()))
+        rows.append(row)
     return rows
 
 
@@ -1669,6 +1826,8 @@ def kernel_phase():
     log("kernels: B1 fused ladder vs plain ladder")
     l2_rate = one_sm_l2_rate()
     fused = check_fused(fused_cases, l2_rate)
+    log("kernels: B1 on planes the column gate routes, each path")
+    skinny = check_skinny(SKINNY_ROUTED, timed=False)
     log("kernels: B2 per-iteration kernels vs plain iteration")
     tiled = check_tiled(tiled_cases)
     log("kernels: global-update kernel vs plain global update")
@@ -1686,7 +1845,8 @@ def kernel_phase():
     greedy = check_greedy_seed(greedy_cases())
     log("kernels: the chained two-band program (B7) vs the plain versions")
     chained = check_chained_program()
-    return fused, tiled, gu, disagg, greedy, program, chained, l2_rate
+    return (fused, skinny, tiled, gu, disagg, greedy, program, chained,
+            l2_rate)
 
 
 # --------------------------------------------------------------- phase 4
@@ -2140,7 +2300,11 @@ def _set_tiers(on: bool) -> None:
 
 
 KERNEL_NAMES = ("fused_ladder", "tiled_iteration", "global_update",
-                "coarse_disaggregate", "greedy_seed", "fused_ladder_cluster")
+                "coarse_disaggregate", "greedy_seed", "fused_ladder_cluster",
+                "fused_ladder_columns")
+# Counted by path, but no path need launch it: the column cluster runs
+# only where a band pads to under 16 rows.
+OPTIONAL_KERNELS = ("fused_ladder_columns",)
 # The kernels a solve route launches.
 ROUTE_KERNELS = {"fused": ("fused_ladder",),
                  "tiled": ("tiled_iteration", "global_update")}
@@ -2346,7 +2510,8 @@ def main_path(capture):
     if kern[0]["launches"]["coarse_disaggregate"] == 0:
         fail("the fresh wave launched no disaggregation kernel")
     for k in KERNEL_NAMES:
-        if not any(n[k] for n in launches.values()):
+        if k not in OPTIONAL_KERNELS and not any(
+                n[k] for n in launches.values()):
             fail(f"no path launched {k}")
     # B2's route on a wave (the first path's wave that took it): its
     # global updates ran as the kernel, with no host read, and each
@@ -3619,7 +3784,7 @@ def main_path_cases(capture):
     return best
 
 
-def kernels_record(fused, tiled, gu, disagg, greedy, launches):
+def kernels_record(fused, skinny, tiled, gu, disagg, greedy, launches):
     """The kernels line.  ``launches`` is ``{path: {kernel: n}}``, each
     path's count read just after its own drive; a row's ``launches`` is
     their sum over the paths, ``launches_by_path`` the split.  The ladder
@@ -3659,11 +3824,16 @@ def kernels_record(fused, tiled, gu, disagg, greedy, launches):
                       for c in cases],
         }
 
+    b1 = row("fused_ladder", "poseidon_tpu_torch/ops/csrc/fused_ladder.cu",
+             "poseidon_tpu/ops/transport_fused.py:113",
+             "one kernel launch: a whole epsilon ladder", fused,
+             "fused_ladder")
+    # B1's launches by path also by cluster, and the column gate's planes.
+    for n in ("fused_ladder_cluster", "fused_ladder_columns"):
+        b1[f"launches_by_path.{n}"] = {k: p[n] for k, p in launches.items()}
+    b1["skinny_cases"] = skinny
     return {"kernels": [
-        row("fused_ladder", "poseidon_tpu_torch/ops/csrc/fused_ladder.cu",
-            "poseidon_tpu/ops/transport_fused.py:113",
-            "one kernel launch: a whole epsilon ladder", fused,
-            "fused_ladder"),
+        b1,
         row("tiled_iteration",
             "poseidon_tpu_torch/ops/csrc/tiled_iteration.cu",
             "poseidon_tpu/ops/transport_tiled.py:73",
@@ -3860,6 +4030,14 @@ def main(argv) -> int:
     info = device_info()
     _timers(True)
     build_kernels()
+    if argv[:1] == ["--b1"]:
+        # B1's checks alone: its kernel cases on every path the gates
+        # take, then the planes the row cluster leaves (the column
+        # cluster against the one-SM kernel and B2), one JSON line.
+        check_fused(kernel_cases()[0], one_sm_l2_rate())
+        log("b1 rows: " + json.dumps({"card": info["smi"],
+                                      "rows": check_skinny()}))
+        return 0
     if argv[:1] == ["--phases"]:
         # A subset of the replay, pressure, soak and scenario phases
         # alone (no kernel comparison, no result line).
@@ -3867,7 +4045,7 @@ def main(argv) -> int:
         log("harness phases: " + json.dumps(_harness_report(info, harness)))
         return 0
     t0 = time.perf_counter()
-    (fused, tiled, gu, disagg, greedy, program, chained_program,
+    (fused, skinny, tiled, gu, disagg, greedy, program, chained_program,
      l2_rate) = kernel_phase()
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     capture = {}
@@ -3963,8 +4141,8 @@ def main(argv) -> int:
          "restored_wave_s": glue["restored"][0]["wall_s"]}))
     log("harness phases: " + json.dumps(_harness_report(info, harness)))
     print(info["smi"], flush=True)
-    print(json.dumps(kernels_record(fused, tiled, gu, disagg, greedy,
-                                    launches)),
+    print(json.dumps(kernels_record(fused, skinny, tiled, gu, disagg,
+                                    greedy, launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"],

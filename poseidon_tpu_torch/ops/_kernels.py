@@ -24,9 +24,10 @@ from pathlib import Path
 from types import SimpleNamespace
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_ladder.cu", "tiled_iteration.cu", "global_update.cu",
+_SOURCES = ("fused_ladder.cu", "fused_ladder_columns.cu",
+            "tiled_iteration.cu", "global_update.cu",
             "coarse_disaggregate.cu", "greedy_seed.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "ladder.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -34,11 +35,12 @@ NVCC_FLAGS = (
 
 # Launch counts, one per kernel: each wrapper adds one where it launches
 # its kernel and nowhere else.  ``fused_ladder_cluster`` counts the B1
-# launches that took the cluster path; ``fused_ladder`` counts every B1
-# launch, either path.
+# launches that took the row cluster, ``fused_ladder_columns`` those that
+# took the column cluster; ``fused_ladder`` counts every B1 launch, any
+# path.
 LAUNCHES = {"fused_ladder": 0, "tiled_iteration": 0, "global_update": 0,
             "coarse_disaggregate": 0, "greedy_seed": 0,
-            "fused_ladder_cluster": 0}
+            "fused_ladder_cluster": 0, "fused_ladder_columns": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -139,6 +141,13 @@ def lib() -> SimpleNamespace:
                  [I] * 3, ctypes.c_size_t)
             bind("fused_ladder.cu", "pt_fused_ladder_max_clusters", [I] * 3,
                  I)
+            bind("fused_ladder_columns.cu", "pt_fused_ladder_columns",
+                 [P] * 14 + [I] * 4 + [P], I)
+            bind("fused_ladder_columns.cu",
+                 "pt_fused_ladder_columns_smem_bytes", [I] * 3,
+                 ctypes.c_size_t)
+            bind("fused_ladder_columns.cu",
+                 "pt_fused_ladder_columns_max_clusters", [I] * 3, I)
             bind("tiled_iteration.cu", "pt_tiled_iteration",
                  [P] * 27 + [I] * 7 + [P], I)
             bind("tiled_iteration.cu", "pt_tiled_iteration_ws_ints", [I, I],

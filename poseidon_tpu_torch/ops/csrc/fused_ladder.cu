@@ -133,13 +133,21 @@
 //   ([16, 128] 1.47 against 1.97 ms, [16, 2048] 17.8 against 26.3,
 //   [1024, 128] 24.8 against 249.7); at 8 rows it was no faster on wide
 //   planes ([8, 1024] 1.36 against 1.37 ms, [8, 2048] 10.6 against 10.8 at
-//   8 CTAs).
+//   8 CTAs).  Where the cluster path declines, a third path may take the
+//   shape: a cluster that splits the columns instead
+//   (fused_ladder_columns.cu, ops/transport_fused.py::ladder_slab_ctas);
+//   the one-SM kernel serves what both decline.
+//
+// The helpers the paths share (the fused reductions' values, the row
+// stages' units, a column's sink arc, the reduced cost, the cluster
+// barrier) are in ladder.cuh.
 
 #include <cooperative_groups.h>
 
 #include <cstddef>
 
 #include "common.cuh"
+#include "ladder.cuh"
 
 namespace {
 
@@ -206,31 +214,6 @@ __device__ __forceinline__ T* scratch(Shared& s) {
   return reinterpret_cast<T*>(s.red);
 }
 
-// Fused reductions: the entering state of an iteration (its positive
-// excess, and the rows and columns that carry it packed in one int: rows
-// in bits 0-15, columns from bit 16), the sink's relabel inputs, and one
-// Bellman-Ford sweep's sink distance with the change flag.
-struct Enter { long long pos; int cnt; };
-struct EnterOp {
-  __device__ Enter operator()(Enter a, Enter b) const {
-    return {a.pos + b.pos, a.cnt + b.cnt};
-  }
-};
-constexpr int kColUnit = 1 << 16;
-
-struct Sink { int sum, hadm, cand; };
-struct SinkOp {
-  __device__ Sink operator()(Sink a, Sink b) const {
-    return {a.sum + b.sum, a.hadm | b.hadm, max(a.cand, b.cand)};
-  }
-};
-struct Sweep { int tb, any; };
-struct SweepOp {
-  __device__ Sweep operator()(Sweep a, Sweep b) const {
-    return {min(a.tb, b.tb), a.any | b.any};
-  }
-};
-
 // Work units of the column stages: (machine column m, row segment r)
 // pairs, u = r * M + m, one thread each, so a warp's lanes take
 // consecutive columns and every plane load of a warp is coalesced.  Each
@@ -259,31 +242,6 @@ struct ColUnitsOf {
 };
 using ColUnits = ColUnitsOf<kThreads>;
 
-// Work units of the row stages that reduce along EC rows: (row e, column
-// segment q) pairs, u = q * E + e, one warp each, its lanes across the
-// segment's 32-column chunks (coalesced).  Each row's chunks split into
-// `segs` contiguous segments: the largest power of two <= the chunk count
-// with segs * E <= W (kWarps here), at least 1, so that with fewer than
-// 32 rows every warp still has work.  With segs > 1 the warps' partials
-// meet in shared memory and one thread per row finishes it after one
-// barrier.  A chunk is CW columns (32 here: one per lane).
-template <int W, int CW = 32>
-struct RowUnitsOf {
-  int E, chunks, segs, seg, n;
-  __device__ RowUnitsOf(int E_, int M) : E(E_), chunks((M + CW - 1) / CW) {
-    segs = 1;
-    while (segs * 2 <= chunks && segs * 2 * E <= W) segs *= 2;
-    seg = (chunks + segs - 1) / segs;
-    n = segs * E;
-  }
-  // Unit u's row, segment and chunks [c0, c1).
-  __device__ void at(int u, int& e, int& q, int& c0, int& c1) const {
-    q = u / E;
-    e = u - q * E;
-    c0 = min(q * seg, chunks);
-    c1 = min(c0 + seg, chunks);
-  }
-};
 using RowUnits = RowUnitsOf<kWarps>;
 
 // Walk items [i0, i1) in batches of N: every load of a batch is issued
@@ -302,28 +260,8 @@ __device__ __forceinline__ void walk(int i0, int i1, Load load, Use use) {
   }
 }
 
-// A machine column's sink arc, ahead of its reverse arcs in the push
-// sweep: the push to the sink and what is left to push back to ECs.
-struct ColHead { int pm, fmt, cap, rc_mt, mt_push, left; };
-
-__device__ __forceinline__ ColHead col_head_of(int xm, int pm, int fmt, int cap, int pt) {
-  ColHead h;
-  h.pm = pm;
-  h.fmt = fmt;
-  h.cap = cap;
-  h.rc_mt = h.pm - pt;
-  h.mt_push = (h.rc_mt < 0 && xm > 0) ? min(h.cap - h.fmt, xm) : 0;
-  h.left = xm - h.mt_push;
-  return h;
-}
-
 __device__ __forceinline__ ColHead col_head(const Planes& p, int m, int pt) {
   return col_head_of(p.exc_m[m], p.pm[m], p.Fmt[m], __ldg(p.cap + m), pt);
-}
-
-// The reduced cost of an EC -> machine arc of cost c.
-__device__ __forceinline__ int rc_em(int c, int pe_e, int pm_m) {
-  return c < PT_INF_COST ? c + pe_e - pm_m : PT_POS;
 }
 
 __device__ __forceinline__ int rc_em_at(const Planes& p, int idx, int pe_e, int pm_m) {
@@ -1011,20 +949,6 @@ struct Ctx {
 };
 
 __device__ __forceinline__ ClShared& shared() { return *reinterpret_cast<ClShared*>(sm); }
-
-// The cluster barrier, and its two halves for work that needs neither
-// side: what a CTA wrote before arriving, its reductions into the other
-// CTAs included, is seen by every CTA after it waits.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_barrier() {
-  cluster_arrive();
-  cluster_wait();
-}
 
 // Threads a column's combine spreads its sends over (each takes every
 // spread-th target CTA), where the CTA has more threads than columns.
@@ -1839,40 +1763,15 @@ extern "C" size_t pt_fused_ladder_cluster_smem_bytes(int E, int M, int ctas) {
   return cluster_smem_bytes(E, M, ctas);
 }
 
-static cudaLaunchConfig_t cluster_config(int ctas, size_t smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
-  cfg.blockDim = dim3(kClThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-static cudaError_t cluster_attributes(int ctas, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cl::fused_ladder_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && ctas > 8)
-    err = cudaFuncSetAttribute(cl::fused_ladder_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
-}
-
 // How many clusters of `ctas` CTAs, with the cluster path's shared memory
 // at [E, M], the card can hold at once (cudaOccupancyMaxActiveClusters);
 // 0 where it cannot launch one.
 extern "C" int pt_fused_ladder_max_clusters(int E, int M, int ctas) {
   if (ctas < 2 || ctas > kMaxCtas) return 0;
   const size_t smem = cluster_smem_bytes(E, M, ctas);
-  if (cluster_attributes(ctas, smem) != cudaSuccess) return 0;
+  if (cluster_attributes(cl::fused_ladder_cluster_kernel, ctas, smem) != cudaSuccess) return 0;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(ctas, smem, 0, attr);
+  cudaLaunchConfig_t cfg = cluster_config(ctas, kClThreads, smem, 0, attr);
   int n = 0;
   if (cudaOccupancyMaxActiveClusters(&n, cl::fused_ladder_cluster_kernel, &cfg) != cudaSuccess)
     n = 0;
@@ -1902,10 +1801,10 @@ extern "C" int pt_fused_ladder(const int* C, const int* U, const int* sup,
     if (ctas < 2 || ctas > kMaxCtas || M % kQuad != 0) return (int)cudaErrorInvalidValue;
     const ClLayout L = cluster_layout(E, M, ctas);
     const size_t smem = sizeof(int) * (size_t)L.ints;
-    cudaError_t err = cluster_attributes(ctas, smem);
+    cudaError_t err = cluster_attributes(cl::fused_ladder_cluster_kernel, ctas, smem);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(ctas, smem, (cudaStream_t)stream, attr);
+    cudaLaunchConfig_t cfg = cluster_config(ctas, kClThreads, smem, (cudaStream_t)stream, attr);
     err = cudaLaunchKernelEx(&cfg, cl::fused_ladder_cluster_kernel, p, L, knobs, stats);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();

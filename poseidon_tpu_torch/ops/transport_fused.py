@@ -11,10 +11,12 @@ ladder, and it never does the one in place of the other.
 The route's gate ``fits_vmem`` is the reference's VMEM budget, inherited
 unchanged so the port sends the same padded shapes to this kernel as the
 reference's accelerator policy does; it is not yet derived for the H100.
-Within it, ``ladder_ctas`` picks from the shape alone between B1's two
-paths, which give the same bits: one block on one SM with its planes in
-L2, or a thread-block cluster whose CTAs hold the planes' rows in their
-shared memory (the kernel source's note).
+Within it, the shape alone picks among B1's three paths, which give the
+same bits: ``ladder_ctas`` a thread-block cluster whose CTAs hold the
+planes' rows in their shared memory (``csrc/fused_ladder.cu``); where it
+declines, ``ladder_slab_ctas`` a cluster whose CTAs hold the planes'
+columns (``csrc/fused_ladder_columns.cu``), for skinny planes from
+``SLAB_MIN_COLS`` columns; else one block on one SM with its planes in L2.
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ from poseidon_tpu_torch.ops.transport import (
 
 # The reference's working-set gate: aligned [E, M] elements.
 VMEM_ELEM_BUDGET = 160 * 1024
-# The fewest EC rows B1 runs as a cluster.  At 8 rows (one a CTA) the
-# cluster path was no faster than the one-SM kernel on wide planes
+# The fewest EC rows B1 runs as a row cluster.  At 8 rows (one a CTA) the
+# row cluster was no faster than the one-SM kernel on wide planes
 # ([8, 1024] 1.360 against 1.365 ms, [8, 2048] 10.610 against 10.843);
 # from 16 rows it was 1.2x to 8.9x faster at every shape timed (NVIDIA
-# H100 80GB HBM3, 700 W; csrc/fused_ladder.cu's note).
+# H100 80GB HBM3, 700 W; csrc/fused_ladder.cu's note).  Fewer rows go to
+# the column cluster where ``ladder_slab_ctas`` takes them.
 CLUSTER_MIN_ROWS = 16
 
 # B1's dynamic shared memory, as ``csrc/fused_ladder.cu`` sizes it at
@@ -118,6 +121,61 @@ def ladder_ctas(e_pad: int, m_pad: int) -> int:
     return 1
 
 
+# The column cluster's dynamic shared memory a CTA, as
+# ``csrc/fused_ladder_columns.cu`` lays it out (``slab_layout``, exported
+# as ``pt_fused_ladder_columns_smem_bytes``): a slot for the CTA's
+# scalars, then int32 arrays: five [E, W] planes of the CTA's W columns
+# (C, Uem, F, the pushes P shared with the forward lengths, the reverse
+# lengths), ten [E] row vectors, seven [W] column vectors, the row units'
+# and the warps' partials, and two buffers of k slots of the widest
+# exchange's 4 E + 6 ints.
+SLAB_SCALAR_BYTES = 128
+# The column cluster's cluster barriers (csrc/fused_ladder_columns.cu's
+# note), as CLUSTER_BARRIERS counts the row cluster's.
+SLAB_BARRIERS = {"iteration": 2, "sweep": 1, "update": 1, "phase": 1}
+# The narrowest plane the column cluster takes (padded columns): at 8 rows
+# it was 1.23x to 7.4x faster than the one-SM kernel from 128 columns to
+# 10240 (csrc/fused_ladder_columns.cu's note).  At 64 it was 1.04x to
+# 1.06x, a few percent for eight SMs in place of one, each holding eight
+# columns, so narrower planes keep the one-SM kernel.
+SLAB_MIN_COLS = 128
+
+
+def slab_width(m_pad: int, ctas: int) -> int:
+    """Columns a CTA of the column cluster holds: its share of
+    ``m_pad`` rounded up to a multiple of 4."""
+    return -(-m_pad // (4 * ctas)) * 4
+
+
+def slab_smem_bytes(e_pad: int, m_pad: int, ctas: int) -> int:
+    """The column cluster's dynamic shared memory a CTA, in bytes, for an
+    ``[e_pad, m_pad]`` plane over ``ctas`` CTAs (each array starts on 16
+    bytes)."""
+    w, nx = slab_width(m_pad, ctas), 4 * e_pad + 6
+
+    def r4(n):
+        return -(-n // 4) * 4
+
+    ints = (5 * r4(e_pad * w) + 10 * r4(e_pad) + 7 * r4(w)
+            + r4(5 * max(e_pad, CLUSTER_WARPS)) + r4(8 * CLUSTER_WARPS)
+            + r4(2 * ctas * nx))
+    return SLAB_SCALAR_BYTES + 4 * ints
+
+
+def ladder_slab_ctas(e_pad: int, m_pad: int) -> int:
+    """B1's column-cluster CTAs at ``[e_pad, m_pad]``, a shape that
+    ``ladder_ctas`` keeps on one SM: from ``SLAB_MIN_COLS`` columns and
+    for a multiple of 4 of them, the first of ``CLUSTER_CTAS`` whose
+    column slabs fit a CTA's shared memory; else 1, the one-SM kernel.  A
+    property of the shape alone: every path gives the same bits."""
+    if m_pad < SLAB_MIN_COLS or m_pad % 4:
+        return 1
+    for k in CLUSTER_CTAS:
+        if slab_smem_bytes(e_pad, m_pad, k) <= SMEM_LIMIT:
+            return k
+    return 1
+
+
 def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
     """Launch B1 on prepared operands; updates the flow/price state in
     place and returns the int32 stats ``[iters, bf, clean,
@@ -128,13 +186,14 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
     E, M = F.shape
     dev = F.device
     ctas = ladder_ctas(E, M)
+    slab = ladder_slab_ctas(E, M) if ctas == 1 else 1
     so = _kernels.lib()
     ck = _kernels.check
     stats = torch.empty(3 + NUM_PHASES, dtype=I32, device=dev)
-    # The one-SM kernel's workspace; the cluster path holds its state in
+    # The one-SM kernel's workspace; the clusters hold their state in
     # shared memory.
     ws = (torch.empty(3 * E * M + 5 * E + 6 * M, dtype=I32, device=dev)
-          if ctas == 1 else None)
+          if ctas == 1 and slab == 1 else None)
     args = [
         ck(ops["C"], "C", (E, M), dev), ck(ops["U"], "U", (E,), dev),
         ck(ops["supply"], "supply", (E,), dev),
@@ -143,16 +202,21 @@ def fused_ladder(ops: dict, state: tuple, knobs: torch.Tensor, ring=None):
         ck(Fmt, "Fmt", (M,), dev), ck(pe, "pe", (E,), dev),
         ck(pm, "pm", (M,), dev), ck(pt, "pt", (1,), dev),
         ck(knobs, "knobs", (10,), dev), stats.data_ptr(),
-        None if ws is None else ws.data_ptr(),
     ]
     cap = 0 if ring is None else ring.shape[1]
     ring_ptr = (None if ring is None
                 else ck(ring, "ring", (TELEM_ROWS, cap), dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _kernels.LAUNCHES["fused_ladder"] += 1
-    if ctas > 1:
-        _kernels.LAUNCHES["fused_ladder_cluster"] += 1
-    rc = so.pt_fused_ladder(*args, ring_ptr, E, M, cap, ctas,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    if slab > 1:
+        _kernels.LAUNCHES["fused_ladder_columns"] += 1
+        rc = so.pt_fused_ladder_columns(*args, ring_ptr, E, M, cap, slab,
+                                        stream)
+    else:
+        if ctas > 1:
+            _kernels.LAUNCHES["fused_ladder_cluster"] += 1
+        rc = so.pt_fused_ladder(*args, None if ws is None else ws.data_ptr(),
+                                ring_ptr, E, M, cap, ctas, stream)
     _kernels.launch_check(rc, "fused_ladder")
     return stats
 

@@ -267,12 +267,15 @@ def _admitted_shapes():
 
 
 def test_fused_ladder_cluster_gate_fits_shared_memory():
-    """At every shape the route admits, B1's gate picks the one-SM kernel
-    or a cluster size of ``CLUSTER_CTAS`` whose shares of the planes fit
-    one H100 block's shared memory (227 KB); it picks by shape alone."""
+    """At every shape the route admits, B1's gates pick by shape alone
+    exactly one path: the row cluster where ``ladder_ctas`` takes it, else
+    the column cluster where ``ladder_slab_ctas`` does, else the one-SM
+    kernel; each cluster at a size of ``CLUSTER_CTAS`` whose shares of the
+    planes fit one H100 block's shared memory (227 KB).  Both clusters
+    take some shapes."""
     from poseidon_tpu_torch.ops import transport_fused as TF
 
-    clustered = 0
+    clustered = slabbed = 0
     for e, m in _admitted_shapes():
         k = TF.ladder_ctas(e, m)
         assert k == 1 or k in TF.CLUSTER_CTAS, (e, m, k)
@@ -280,7 +283,14 @@ def test_fused_ladder_cluster_gate_fits_shared_memory():
             clustered += 1
             assert TF.cluster_smem_bytes(e, m, k) <= 227 * 1024, (e, m, k)
             assert e >= TF.CLUSTER_MIN_ROWS
-    assert clustered > 0
+            continue
+        k = TF.ladder_slab_ctas(e, m)
+        assert k == 1 or k in TF.CLUSTER_CTAS, (e, m, k)
+        if k > 1:
+            slabbed += 1
+            assert TF.slab_smem_bytes(e, m, k) <= 227 * 1024, (e, m, k)
+            assert m >= TF.SLAB_MIN_COLS and m % 4 == 0
+    assert clustered > 0 and slabbed > 0
 
 
 @pytest.mark.parametrize("e,m,ctas", [
@@ -333,18 +343,25 @@ def test_fused_ladder_cluster_gate_routes_the_burst_and_keeps_the_extremes():
     assert TF.ladder_ctas(128, 254) == 1
 
 
-@pytest.mark.parametrize("E,M", [(128, 256), (8, 20480)])
-def test_fused_ladder_wrapper_passes_the_gate_and_counts(monkeypatch, E, M):
+@pytest.mark.parametrize("E,M,path", [
+    (128, 256, "cluster"), (8, 20480, "one_sm"), (8, 64, "one_sm"),
+    (8, 10240, "columns"), (12, 6144, "columns")])
+def test_fused_ladder_wrapper_passes_the_gate_and_counts(monkeypatch, E, M,
+                                                         path):
     """B1's wrapper hands its entry point the gate's CTA count, and a
-    workspace only for the one-SM kernel; it counts every launch in
-    ``fused_ladder`` and the cluster path's also in
-    ``fused_ladder_cluster``."""
+    workspace only for the one-SM kernel; it consults the column gate only
+    where the row gate keeps one SM, and then calls the column cluster's
+    entry point.  It counts every launch in ``fused_ladder``, the row
+    cluster's also in ``fused_ladder_cluster`` and the column cluster's
+    also in ``fused_ladder_columns``."""
     from types import SimpleNamespace
 
     from poseidon_tpu_torch.ops import transport_fused as TF
 
     calls = []
-    fake = SimpleNamespace(pt_fused_ladder=lambda *a: calls.append(a) or 0)
+    fake = SimpleNamespace(
+        pt_fused_ladder=lambda *a: calls.append(("rows", a)) or 0,
+        pt_fused_ladder_columns=lambda *a: calls.append(("columns", a)) or 0)
     monkeypatch.setattr(_kernels, "lib", lambda: fake)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: SimpleNamespace(cuda_stream=0))
@@ -354,16 +371,87 @@ def test_fused_ladder_wrapper_passes_the_gate_and_counts(monkeypatch, E, M):
 
     ops = dict(C=z(E, M), U=z(E), supply=z(E), cap=z(M), Uem=z(E, M))
     state = (z(E, M), z(E), z(M), z(E), z(M), z(1))
-    n0 = dict(_kernels.LAUNCHES)
+    keys = ("fused_ladder", "fused_ladder_cluster", "fused_ladder_columns")
+    n0 = {k: _kernels.LAUNCHES[k] for k in keys}
     TF.fused_ladder(ops, state, z(10))
-    ctas = TF.ladder_ctas(E, M)
     assert len(calls) == 1
-    *_, ws, ring, e, m, cap, got, stream = calls[0]
-    assert (e, m, cap, got, ring) == (E, M, 0, ctas, None)
-    assert (ws is None) == (ctas > 1)
-    assert _kernels.LAUNCHES["fused_ladder"] == n0["fused_ladder"] + 1
-    assert (_kernels.LAUNCHES["fused_ladder_cluster"]
-            == n0["fused_ladder_cluster"] + (ctas > 1))
+    entry, args = calls[0]
+    assert entry == ("columns" if path == "columns" else "rows")
+    if path == "columns":
+        *_, ring, e, m, cap, ctas, stream = args
+        assert len(args) == 19
+        assert (e, m, cap, ctas, ring) == (E, M, 0, TF.ladder_slab_ctas(E, M),
+                                           None)
+    else:
+        *_, ws, ring, e, m, cap, ctas, stream = args
+        assert (e, m, cap, ctas, ring) == (E, M, 0, TF.ladder_ctas(E, M),
+                                           None)
+        assert (ws is None) == (path == "cluster")
+    assert {k: _kernels.LAUNCHES[k] - n0[k] for k in keys} == {
+        "fused_ladder": 1, "fused_ladder_cluster": int(path == "cluster"),
+        "fused_ladder_columns": int(path == "columns")}
+
+
+def test_fused_ladder_slab_gate_routes_the_backlog_and_keeps_the_extremes():
+    """The backlog's 8-row planes take the column cluster: [8, 10240] over
+    16 CTAs (8 do not hold its slabs), [8, 256] over 8; the gate's wide
+    extreme [8, 20480] and the churn width [128, 1280] (slabs past a CTA's
+    shared memory) and planes under ``SLAB_MIN_COLS`` keep the one-SM
+    kernel, as does a width off 4."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    assert TF.ladder_slab_ctas(8, 10240) == 16
+    assert TF.slab_smem_bytes(8, 10240, 8) > TF.SMEM_LIMIT
+    assert TF.ladder_slab_ctas(8, 20480) == 1
+    assert TF.ladder_slab_ctas(128, 1280) == 1
+    assert TF.ladder_slab_ctas(9, 64) == 1
+    assert TF.ladder_slab_ctas(8, 256) == 8
+    assert TF.ladder_slab_ctas(8, TF.SLAB_MIN_COLS) > 1
+    assert TF.ladder_slab_ctas(8, TF.SLAB_MIN_COLS - 4) == 1
+    assert TF.ladder_slab_ctas(8, TF.SLAB_MIN_COLS + 2) == 1
+
+
+@pytest.mark.parametrize("e,m,ctas", [
+    (8, 10240, 16), (8, 10240, 8), (8, 2048, 8), (12, 6144, 16),
+    (4, 1024, 16), (1, 512, 8), (15, 300, 16), (128, 1280, 16),
+    (33, 100, 8)])
+def test_fused_ladder_slab_smem_mirror_matches_the_kernel(e, m, ctas):
+    """The Python mirror of the column cluster's shared memory a CTA
+    equals the formula of ``slab_layout`` in
+    ``csrc/fused_ladder_columns.cu``: the scalar slot plus every array it
+    takes, its slab width and exchange width read from the source and
+    evaluated at [e, m] over ``ctas`` CTAs.  On the card, chip_smoke.py
+    holds the mirror to the compiled function at every routed shape."""
+    import re
+    from pathlib import Path
+
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    src = (Path(TF.__file__).parent / "csrc"
+           / "fused_ladder_columns.cu").read_text()
+    body = src[src.index("SlabLayout slab_layout(int E, int M, int k) {"):]
+    body = body[:body.index("\n}\n")]
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (kThreads|kScalarBytes) = (\d+);", src)}
+    assert set(consts) == {"kThreads", "kScalarBytes"}
+    assert consts["kScalarBytes"] == TF.SLAB_SCALAR_BYTES
+    assert consts["kThreads"] == TF.CLUSTER_THREADS
+
+    def c_expr(name):
+        expr = re.search(rf"L\.{name} = ([^;]*);", body).group(1)
+        return eval(expr.replace("/", "//"), {}, {"E": e, "M": m, "k": ctas})
+
+    w, nx = c_expr("W"), c_expr("nx")
+    assert (w, nx) == (TF.slab_width(m, ctas), 4 * e + 6)
+    env = {"E": e, "W": w, "k": ctas, "nx": nx, "imax": max,
+           "kWarps": consts["kThreads"] // 32}
+    takes = re.findall(r"take\(([^()]*(?:\([^()]*\))?[^()]*)\)", body)
+    assert len(takes) >= 25
+    # take() starts every array on 16 bytes.
+    assert "o += (n + 3) & ~3;" in body
+    ints = consts["kScalarBytes"] // 4 + sum(
+        -(-eval(t, {}, env) // 4) * 4 for t in takes)
+    assert TF.slab_smem_bytes(e, m, ctas) == 4 * ints
 
 
 @pytest.fixture()
@@ -439,6 +527,8 @@ def test_fused_ladder_paths_match_plain_on_card(cuda_device, monkeypatch, E,
     from poseidon_tpu_torch.ops import transport_fused as TF
 
     monkeypatch.setattr(TF, "ladder_ctas", lambda e, m: ctas)
+    # ctas 1 means the one-SM kernel: the column gate stays shut.
+    monkeypatch.setattr(TF, "ladder_slab_ctas", lambda e, m: 1)
     big, vec, scale = _packed(E, M, 3)
     kw = dict(max_iter=8192, scale=scale, device=cuda_device, telem_cap=cap)
     n0 = {k: _kernels.LAUNCHES[k]
@@ -456,20 +546,70 @@ def test_fused_ladder_paths_match_plain_on_card(cuda_device, monkeypatch, E,
 
 
 @pytest.mark.cuda
-def test_fused_ladder_gate_takes_the_cluster_on_card(cuda_device):
-    """Through the gate alone, the burst's coarse shape [128, 256] runs
-    on the cluster path (one launch, counted in both counters) and
-    matches the plain ladder."""
-    big, vec, scale = _packed(128, 256, 5)
+@pytest.mark.parametrize("E,M,counter", [
+    (128, 256, "fused_ladder_cluster"), (8, 10240, "fused_ladder_columns")])
+def test_fused_ladder_gate_takes_the_cluster_on_card(cuda_device, E, M,
+                                                    counter):
+    """Through the gates alone, the burst's coarse shape [128, 256] runs
+    on the row cluster and the backlog's wide 8-row shape [8, 10240] on
+    the column cluster (one launch, counted in ``fused_ladder`` and in the
+    path's counter) and matches the plain ladder."""
+    big, vec, scale = _packed(E, M, 5)
     kw = dict(max_iter=8192, scale=scale, device=cuda_device)
-    n0 = {k: _kernels.LAUNCHES[k]
-          for k in ("fused_ladder", "fused_ladder_cluster")}
+    keys = ("fused_ladder", "fused_ladder_cluster", "fused_ladder_columns")
+    n0 = {k: _kernels.LAUNCHES[k] for k in keys}
     F, small = T._solve_device_packed(big, vec, impl="fused", **kw)
     assert {k: _kernels.LAUNCHES[k] - n for k, n in n0.items()} == {
-        "fused_ladder": 1, "fused_ladder_cluster": 1}
+        k: int(k in ("fused_ladder", counter)) for k in keys}
     F0, small0 = T._solve_device_packed(big, vec, impl="lax", **kw)
     np.testing.assert_array_equal(F.cpu().numpy(), F0.cpu().numpy())
     np.testing.assert_array_equal(small, small0)
+
+
+def _b1_column_cases():
+    """(E, M, CTAs, ring cap) for B1's column cluster: the backlog's wide
+    8-row plane and narrower ones, fewer rows, rows and slabs off 8, one
+    row; at each cluster size whose slabs fit, the ring off and on."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    out = []
+    for E, M in ((8, 10240), (8, 4096), (8, 2048), (4, 1024), (12, 6144),
+                 (1, 512)):
+        for ctas in TF.CLUSTER_CTAS:
+            if TF.slab_smem_bytes(E, M, ctas) <= TF.SMEM_LIMIT:
+                out += [(E, M, ctas, 0), (E, M, ctas, 512)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,ctas,cap", _b1_column_cases())
+def test_fused_ladder_columns_match_plain_on_card(cuda_device, monkeypatch,
+                                                  E, M, ctas, cap):
+    """B1's column cluster at ``ctas`` CTAs, through the wrapper with the
+    row gate shut: the flows and the whole small result (prices, stats
+    with the per-phase iterations, and the ring at ``cap`` > 0) bit-equal
+    to the plain ladder's and to the one-SM kernel's; one B1 launch a
+    solve, counted in ``fused_ladder_columns`` exactly when the column
+    cluster ran."""
+    from poseidon_tpu_torch.ops import transport_fused as TF
+
+    monkeypatch.setattr(TF, "ladder_ctas", lambda e, m: 1)
+    big, vec, scale = _packed(E, M, 3)
+    kw = dict(max_iter=8192, scale=scale, device=cuda_device, telem_cap=cap)
+    keys = ("fused_ladder", "fused_ladder_cluster", "fused_ladder_columns")
+    got = {}
+    for path, slab in (("columns", ctas), ("one_sm", 1)):
+        monkeypatch.setattr(TF, "ladder_slab_ctas", lambda e, m, k=slab: k)
+        n0 = {k: _kernels.LAUNCHES[k] for k in keys}
+        got[path] = T._solve_device_packed(big, vec, impl="fused", **kw)
+        torch.cuda.synchronize()
+        assert {k: _kernels.LAUNCHES[k] - n0[k] for k in keys} == {
+            "fused_ladder": 1, "fused_ladder_cluster": 0,
+            "fused_ladder_columns": int(path == "columns")}
+    F0, small0 = T._solve_device_packed(big, vec, impl="lax", **kw)
+    for F, small in got.values():
+        np.testing.assert_array_equal(F.cpu().numpy(), F0.cpu().numpy())
+        np.testing.assert_array_equal(small, small0)
 
 
 @pytest.mark.cuda
