@@ -2585,19 +2585,19 @@ def _wide_operands(capture):
 
 def _timed_solve(fn, *args, **kw):
     """``fn(*args, **kw)``, its host-clock seconds (the card synchronized
-    on both sides), its host reads and its global updates (the sharded
-    solve's, counted by a spy on ``_sh_global_update``)."""
+    on both sides), its host reads and its global updates (the block
+    ladder's, which a sharded solve runs, counted by a spy on
+    ``transport._block_global_update``)."""
     from poseidon_tpu_torch.ops import transport as T
-    from poseidon_tpu_torch.ops import transport_sharded as TS
 
     gus = [0]
-    real = TS._sh_global_update
+    real = T._block_global_update
 
     def counted(*a, **k):
         gus[0] += 1
         return real(*a, **k)
 
-    _swap(TS, "_sh_global_update", counted)
+    _swap(T, "_block_global_update", counted)
     try:
         if DEVICE.type == "cuda":
             torch.cuda.synchronize()
@@ -2608,7 +2608,7 @@ def _timed_solve(fn, *args, **kw):
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
-        _swap(TS, "_sh_global_update", None)
+        _swap(T, "_block_global_update", None)
     return sol, secs, T.host_read_count() - r0, gus[0]
 
 

@@ -27,7 +27,7 @@ mode it guards:
                      result or a CUDA tensor outside the declared
                      boundary (``transport._host_read``; ``ops/``,
                      ``graph/``, ``costmodel/``);
-- ``shard-discipline`` — the sharded solve's machine-axis reductions
+- ``shard-discipline`` — the block ladder's machine-axis reductions
                      through ``_Collectives``, pad-to-mesh-multiple, and
                      precompile reachability of the sharded solve key;
 - ``hatch-registry`` — every ``POSEIDON_*`` hatch reads through the

@@ -1,11 +1,12 @@
 """shard-discipline: the sharded solve's collectives, padding and warm-up.
 
 The port's counterpart of ``poseidon_tpu/check/shard_discipline.py``,
-over ``ops/transport_sharded.py``.  The port's mesh is a list of
+over the block ladder of ``ops/transport.py`` and the sharded front of
+``ops/transport_sharded.py``.  The port's mesh is a list of
 ``torch.device``s with no named axes: each shard holds its column block
 of the ``[E, M]`` planes on its own device, and every reduction over the
-machine axis is an explicit collective over per-shard partials
-(``_Collectives``: ``reduce``, ``exscan``, ``gather``).  The failure
+machine axis is an explicit collective over per-block partials
+(``_Collectives``: ``reduce``, ``scan``, ``gather``).  The failure
 modes are sharding-specific and silent on one device, where every shard
 sees the same numbers:
 
@@ -315,7 +316,7 @@ class ShardDisciplineRule(Rule):
                     f"machine-axis `{op}` in `{fn_name}` is a per-shard "
                     "partial that reaches a result without a collective: "
                     "right on one shard, wrong on two — reduce it through "
-                    "_Collectives (reduce/exscan/gather)",
+                    "_Collectives (reduce/scan/gather)",
                 ))
             for lineno, fn_name in f.unpadded:
                 if lineno in f.suppressed:

@@ -35,6 +35,7 @@ from __future__ import annotations
 from collections import Counter
 from contextlib import contextmanager
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -438,8 +439,117 @@ def _use_tiled(e_pad: int, m_pad: int, device) -> bool:
 # an explicit int32 dtype (torch widens integer sums to int64 otherwise),
 # floor division for the global update's arc lengths.  Every lax.while_loop
 # condition of the reference is a host read here (``_host_read``).
+#
+# Each step is written once, over column blocks: the machine axis as a
+# list of ``[E, Mb]`` blocks and their ``[Mb]`` slices, one entry a block,
+# each block with its own copy of the ``[E]`` row and ``[1]`` sink
+# vectors.  Column-axis work is a block's own; every reduction over the
+# machine axis goes through the collectives (``_Collectives``).  One
+# device is one block, and there the collectives run no operation; a
+# mesh-sharded solve (``transport_sharded``) is k blocks, one a shard.
 
 I32 = torch.int32
+
+
+class _Collectives:
+    """The ladder's steps across blocks, over per-block partials (one
+    tensor a block, each on its block's device, all one shape).  One
+    block holds the whole machine axis: each collective hands back its
+    input and runs no operation.  Over more, the partials are stacked on
+    block 0 and reduced there, and a replicated result goes back to every
+    block; when every block is on one device the stack is the whole
+    collective and the result is shared.  Integer sums and scans are int32
+    (wrapping as one device's do) unless the partials are int64."""
+
+    def __init__(self, devices) -> None:
+        self.devices = tuple(devices)
+        self.lead = self.devices[0]
+
+    def _stack(self, parts):
+        return torch.stack([p.to(self.lead) for p in parts])
+
+    def _out(self, t):
+        return [t.to(d) for d in self.devices]
+
+    def reduce(self, op: str, parts, lead_only: bool = False):
+        """``op`` ("sum", "amax", "amin", "any" or "all") over the blocks'
+        partials: the result on every block, or on block 0 alone."""
+        if len(parts) == 1:
+            return parts[0] if lead_only else list(parts)
+        s = self._stack(parts)
+        r = s.sum(0, dtype=s.dtype) if op == "sum" else getattr(s, op)(0)
+        return r if lead_only else self._out(r)
+
+    def scan(self, scans, dim: int):
+        """The blocks' own inclusive scans along the machine axis (``dim``
+        of each block) made global: each block's scan plus the totals of
+        the blocks before it (in block order).  Returns ``(scans,
+        totals)``, ``totals`` the whole axis's sum (``dim`` dropped) on
+        every block."""
+        last = [s.select(dim, -1) for s in scans]
+        if len(scans) == 1:
+            return list(scans), last
+        s = self._stack(last)
+        inc = torch.cumsum(s, 0, dtype=s.dtype)
+        off = inc - s
+        return ([sc + off[j].to(sc.device).unsqueeze(dim)
+                 for j, sc in enumerate(scans)], self._out(inc[-1]))
+
+    def gather(self, parts):
+        """The blocks' pieces of a ``[M]`` vector, joined on block 0."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.lead) for p in parts])
+
+
+def _one_device(block_fn):
+    """``block_fn``'s one-device form, on tensors: each tensor it takes
+    (in a state tuple or an operand dict too), the solve-wide ones
+    excepted, is one block; it runs with one block's collectives; and
+    each one-block list it returns is a tensor again.  A hook it takes
+    (``iterate``, ``global_update``) is a kernel route's, on tensors like
+    ``_pr_iteration``'s and ``_global_update``'s: its blocks go in as
+    tensors, and the block state it returns first (nine tensors at most;
+    an iteration's status follows) comes out as blocks again."""
+    names = block_fn.__code__.co_varnames[:block_fn.__code__.co_argcount]
+
+    def hook_on_block(hook):
+        def on_block(*args, **kw):
+            out = hook(*map(tensors, args),
+                       **{n: tensors(v) for n, v in kw.items()})
+            return (*([t] for t in out[:9]), *out[9:])
+        return on_block
+
+    def block(v, name=None):
+        # The tensors a step takes for the whole solve, beside its
+        # blocks: the status, its iteration count, the sweeps, the ring.
+        if name in ("st", "iters", "sweeps_acc", "ring") or v is None:
+            return v
+        if isinstance(v, torch.Tensor):
+            return [v]
+        if isinstance(v, tuple):
+            return tuple(map(block, v))
+        if isinstance(v, dict):
+            return {n: block(x, n) for n, x in v.items()}
+        return hook_on_block(v) if callable(v) else v
+
+    def tensors(v):
+        if isinstance(v, list):
+            return v[0]
+        if isinstance(v, tuple):
+            return tuple(map(tensors, v))
+        if isinstance(v, dict):
+            return {n: tensors(x) for n, x in v.items()}
+        return v
+
+    def on_device(*args, **kw):
+        first = args[0] if isinstance(args[0], torch.Tensor) else args[0][0]
+        return tensors(block_fn(
+            *map(block, args, names), coll=_Collectives([first.device]),
+            **{n: block(v, n) for n, v in kw.items()}))
+
+    on_device.__doc__ = f"``{block_fn.__name__}`` on one device."
+    return on_device
 
 
 def _relabel_to(maxcand, has_adm, excess, p, eps):
@@ -485,24 +595,17 @@ def _gu_advance(tot_excess: int, it: int, gap: int, last_exc: int,
     return it + gap_f, gap_f, tot_excess
 
 
-def _excesses(F, Ffb, Fmt, *, supply, total: int):
+
+
+def _block_excesses(F, Ffb, Fmt, *, supply, total: int, coll):
     """Node excesses from the flow state (``exc_t`` as a [1] tensor)."""
-    exc_e = supply - F.sum(1, dtype=I32) - Ffb
-    exc_m = F.sum(0, dtype=I32) - Fmt
-    exc_t = (Fmt.sum(dtype=I32) + Ffb.sum(dtype=I32) - total).reshape(1)
+    rows = coll.reduce("sum", [f.sum(1, dtype=I32) for f in F])
+    exc_e = [s - r - fb for s, r, fb in zip(supply, rows, Ffb)]
+    exc_m = [f.sum(0, dtype=I32) - m for f, m in zip(F, Fmt)]
+    fmt = coll.reduce("sum", [m.sum(dtype=I32) for m in Fmt])
+    exc_t = [(s + fb.sum(dtype=I32) - total).reshape(1)
+             for s, fb in zip(fmt, Ffb)]
     return exc_e, exc_m, exc_t
-
-
-def _active_excess(exc_e, exc_m, exc_t):
-    """Saturating total ACTIVE (positive) excess as an int32 [1] tensor,
-    and its saturation flag as a bool [1] tensor."""
-    s = (
-        exc_e.clamp(min=0).sum(dtype=torch.int64)
-        + exc_m.clamp(min=0).sum(dtype=torch.int64)
-        + exc_t.clamp(min=0).sum(dtype=torch.int64)
-    ).reshape(1)
-    sat = s >= _EXCESS_SAT_THRESH
-    return torch.where(sat, _EXCESS_SAT, s).to(I32), sat
 
 
 # The int32 phase status the loop reads once per unroll group.  Every
@@ -514,14 +617,29 @@ _ST_ACTIVE, _ST_EXCESS, _ST_ITERS, _ST_ROWS, _ST_COLS, _ST_SAT = range(6)
 STATUS_INTS = 6
 
 
-def _phase_status(exc_e, exc_m, exc_t, iters):
-    """The status (above) of the state with these excesses; ``iters`` is
-    a [1] tensor."""
-    rows = (exc_e > 0).sum(dtype=I32).reshape(1)
-    cols = (exc_m > 0).sum(dtype=I32).reshape(1)
-    act = (rows > 0) | (cols > 0) | (exc_t > 0)
-    tot, sat = _active_excess(exc_e, exc_m, exc_t)
-    return torch.cat([act.to(I32), tot, iters, rows, cols, sat.to(I32)])
+def _block_status(exc_e, exc_m, exc_t, iters, *, coll):
+    """The status (above) of the state with these excesses, on block 0;
+    ``iters`` is a [1] tensor; the total active excess saturates
+    (``_EXCESS_SAT``).  Over more than one block an entry a block follows
+    the shared ones: its machine columns' active excess (its telemetry
+    lane), saturated as the total is."""
+    e, t = exc_e[0], exc_t[0]
+    rows = (e > 0).sum(dtype=I32).reshape(1)
+    cols = coll.reduce("sum", [(m > 0).sum(dtype=I32).reshape(1)
+                               for m in exc_m], lead_only=True)
+    act = (rows > 0) | (cols > 0) | (t > 0)
+    e_act = e.clamp(min=0).sum(dtype=torch.int64)
+    m_act = [m.clamp(min=0).sum(dtype=torch.int64) for m in exc_m]
+    s = (e_act + coll.reduce("sum", m_act, lead_only=True)
+         + t.clamp(min=0).sum(dtype=torch.int64)).reshape(1)
+    sat = s >= _EXCESS_SAT_THRESH
+    tot = torch.where(sat, _EXCESS_SAT, s).to(I32)
+    out = [act.to(I32), tot, iters, rows, cols, sat.to(I32)]
+    if len(exc_m) > 1:
+        lanes = coll._stack(m_act)
+        out.append(torch.where(lanes >= _EXCESS_SAT_THRESH, _EXCESS_SAT,
+                               lanes).to(I32))
+    return torch.cat(out)
 
 
 def _telem_write(ring, st, base: int, eps: int) -> None:
@@ -535,21 +653,21 @@ def _telem_write(ring, st, base: int, eps: int) -> None:
     it = st[_ST_ITERS:_ST_ITERS + 1] + base
     col = torch.remainder(it, ring.shape[1]).long()
     zero = torch.zeros(1, dtype=I32, device=ring.device)
-    extra = ring.shape[0] - TELEM_ROWS
     vals = torch.cat([
         it, st[_ST_EXCESS:_ST_EXCESS + 1], st[_ST_ROWS:_ST_ROWS + 1],
         st[_ST_COLS:_ST_COLS + 1],
         torch.full((1,), eps, dtype=I32, device=ring.device), zero, zero,
-        st[_ST_SAT:_ST_SAT + 1],
-    ] + ([st[STATUS_INTS:STATUS_INTS + extra]] if extra else []))
+        st[_ST_SAT:_ST_SAT + 1], st[STATUS_INTS:],
+    ])
     old = ring.index_select(1, col).reshape(-1)
     active = st[_ST_ACTIVE:_ST_ACTIVE + 1] > 0
     ring.index_copy_(1, col, torch.where(active, vals, old)[:, None])
 
 
-def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
-                   *, C, U, Uem, supply, cap, adm, eps: int, bf_max: int,
-                   ring=None, ring_slot: int = 0):
+def _block_global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
+                         sweeps_acc, *, C, U, Uem, supply, cap, adm,
+                         eps: int, bf_max: int, ring=None, ring_slot: int = 0,
+                         coll):
     """Goldberg-style global price update (the reference's
     ``_global_update``): Bellman-Ford distances to a deficit node over the
     residual graph under lengths ``floor(rc / eps) + 1``, then potentials
@@ -559,45 +677,58 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
     per-iteration route's kernel (``transport_tiled.GlobalUpdate``) does on
     the device.  With a telemetry ``ring`` it marks column ``ring_slot``
     (the firing iteration's) as fired, with its sweeps."""
+    R = range(len(F))
 
     def lengths(rc):
         return torch.div(rc, eps, rounding_mode="floor") + 1
 
-    rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], 0)
-    l_em = torch.where(adm, lengths(rc_em), _DINF)
-    l_me = torch.where(adm, lengths(-rc_em), _DINF)
-    l_efb = lengths(U + pe - pt)
-    l_tfb = lengths(-(U + pe - pt))
-    l_mt = lengths(pm - pt)
-    l_tm = lengths(-(pm - pt))
+    def arcs(j):
+        """Block ``j``'s residual arcs by class, each (open, length): EC
+        to machine and back, EC to sink and back, machine to sink and
+        back."""
+        rc_em = torch.where(adm[j], C[j] + pe[j][:, None] - pm[j][None, :], 0)
+        rc_fb = U[j] + pe[j] - pt[j]
+        rc_mt = pm[j] - pt[j]
+        return (((Uem[j] - F[j]) > 0,
+                 torch.where(adm[j], lengths(rc_em), _DINF)),
+                (F[j] > 0, torch.where(adm[j], lengths(-rc_em), _DINF)),
+                ((supply[j] - Ffb[j]) > 0, lengths(rc_fb)),
+                (Ffb[j] > 0, lengths(-rc_fb)),
+                ((cap[j] - Fmt[j]) > 0, lengths(rc_mt)),
+                (Fmt[j] > 0, lengths(-rc_mt)))
 
-    has_em = (Uem - F) > 0
-    has_me = F > 0
-    has_efb = (supply - Ffb) > 0
-    has_tfb = Ffb > 0
-    has_mt = (cap - Fmt) > 0
-    has_tm = Fmt > 0
+    em, me, efb, tfb, mt, tm = zip(*map(arcs, R))
 
-    inf = torch.full_like(exc_e, _DINF)
-    d_e = torch.where(exc_e < 0, 0, inf)
-    d_m = torch.where(exc_m < 0, 0, torch.full_like(exc_m, _DINF))
-    d_t = torch.where(exc_t < 0, 0, torch.full_like(exc_t, _DINF))
+    def via(arc, d):
+        return torch.where(arc[0], arc[1] + d, _DINF)
+
+    def unreached(exc):
+        return [torch.where(x < 0, 0, torch.full_like(x, _DINF)) for x in exc]
+
+    d_e, d_m, d_t = unreached(exc_e), unreached(exc_m), unreached(exc_t)
 
     def sweep(d_e, d_m, d_t):
-        via_m = torch.where(has_em, l_em + d_m[None, :], _DINF).amin(1)
-        via_t = torch.where(has_efb, l_efb + d_t, _DINF)
-        d_e_new = torch.minimum(d_e, torch.minimum(via_m, via_t))
-        via_e = torch.where(has_me, l_me + d_e[:, None], _DINF).amin(0)
-        via_t_m = torch.where(has_mt, l_mt + d_t, _DINF)
-        d_m_new = torch.minimum(d_m, torch.minimum(via_e, via_t_m))
-        via_m_t = torch.where(has_tm, l_tm + d_m, _DINF).amin()
-        via_e_t = torch.where(has_tfb, l_tfb + d_e, _DINF).amin()
-        d_t_new = torch.minimum(d_t, torch.minimum(via_m_t, via_e_t))
-        return d_e_new, d_m_new, d_t_new
+        via_m = coll.reduce("amin", [via(em[j], d_m[j][None, :]).amin(1)
+                                     for j in R])
+        via_m_t = coll.reduce("amin", [via(tm[j], d_m[j]).amin() for j in R])
 
-    # Four sweeps per convergence check; extra sweeps after convergence
-    # are exact no-ops (relaxation is monotone), and the check admits one
-    # group past bf_max exactly like the reference's loop condition.
+        def relax(j):
+            via_e = via(me[j], d_e[j][:, None]).amin(0)
+            via_e_t = via(tfb[j], d_e[j]).amin()
+            return (
+                torch.minimum(d_e[j], torch.minimum(via_m[j],
+                                                    via(efb[j], d_t[j]))),
+                torch.minimum(d_m[j], torch.minimum(via_e,
+                                                    via(mt[j], d_t[j]))),
+                torch.minimum(d_t[j], torch.minimum(via_m_t[j], via_e_t)),
+            )
+
+        return map(list, zip(*map(relax, R)))
+
+    # Four sweeps per convergence check (the flag on block 0); extra
+    # sweeps after convergence are exact no-ops (relaxation is monotone),
+    # and the check admits one group past bf_max exactly like the
+    # reference's loop condition.
     BF_UNROLL = 4
     sweeps = 0
     changed = True
@@ -606,7 +737,10 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
         for _ in range(BF_UNROLL):
             d_e, d_m, d_t = sweep(d_e, d_m, d_t)
         flag = (
-            (d_e != d0[0]).any() | (d_m != d0[1]).any() | (d_t != d0[2]).any()
+            (d_e[0] != d0[0][0]).any()
+            | coll.reduce("any", [(d_m[j] != d0[1][j]).any() for j in R],
+                          lead_only=True)
+            | (d_t[0] != d0[2][0]).any()
         )
         changed = bool(_host_read(flag))
         sweeps += BF_UNROLL
@@ -619,28 +753,31 @@ def _global_update(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, sweeps_acc,
         # Unconverged: skip the update (it only accelerates; the host
         # certificate re-derives optimality regardless).
         return pe, pm, pt
-    finite_max = torch.maximum(
-        torch.maximum(
-            torch.where(d_e < _DINF, d_e, 0).amax(),
-            torch.where(d_m < _DINF, d_m, 0).amax(),
-        ),
-        torch.where(d_t < _DINF, d_t, 0).amax(),
-    )
-    dbig = finite_max + 1
-    d_e = torch.where(d_e >= _DINF, dbig, d_e)
-    d_m = torch.where(d_m >= _DINF, dbig, d_m)
-    d_t = torch.where(d_t >= _DINF, dbig, d_t)
-    # Apply only when overflow-safe.
-    ok = finite_max < (1 << 26) // max(eps, 1)
-    pe_new = torch.where(ok, torch.clamp(pe - eps * d_e, min=_NEG // 2), pe)
-    pm_new = torch.where(ok, torch.clamp(pm - eps * d_m, min=_NEG // 2), pm)
-    pt_new = torch.where(ok, torch.clamp(pt - eps * d_t, min=_NEG // 2), pt)
-    return pe_new, pm_new, pt_new
+    max_m = coll.reduce("amax", [torch.where(d < _DINF, d, 0).amax()
+                                 for d in d_m])
+
+    def lower(j):
+        finite_max = torch.maximum(
+            torch.maximum(torch.where(d_e[j] < _DINF, d_e[j], 0).amax(),
+                          max_m[j]),
+            torch.where(d_t[j] < _DINF, d_t[j], 0).amax(),
+        )
+        dbig = finite_max + 1
+        # Apply only when overflow-safe.
+        ok = finite_max < (1 << 26) // max(eps, 1)
+
+        def drop(p, d):
+            d = torch.where(d >= _DINF, dbig, d)
+            return torch.where(ok, torch.clamp(p - eps * d, min=_NEG // 2), p)
+
+        return drop(pe[j], d_e[j]), drop(pm[j], d_m[j]), drop(pt[j], d_t[j])
+
+    return tuple(map(list, zip(*map(lower, R))))
 
 
-def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
-                  eps: int, do_relabel: bool, C, U, Uem, supply, cap, adm,
-                  total: int, ring=None, ring_base: int = 0):
+def _block_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
+                     eps: int, do_relabel: bool, C, U, Uem, supply, cap, adm,
+                     total: int, ring=None, ring_base: int = 0, coll):
     """One synchronous push sweep, the new excesses and (with
     ``do_relabel``) the local relabel: the plain version of the
     per-iteration kernel (B2).  Prices are frozen during the push; pushes
@@ -651,102 +788,248 @@ def _pr_iteration(F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st, *,
     state plus the advanced phase status ``st``.  With a telemetry
     ``ring`` it first writes this iteration's sample (``_telem_write``,
     ``ring_base`` = the earlier phases' iterations)."""
+    R = range(len(F))
     if ring is not None:
         _telem_write(ring, st, ring_base, eps)
-    rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
-    rc_fb = U + pe - pt
-    rc_mt = pm - pt
+    rc_em = [torch.where(adm[j], C[j] + pe[j][:, None] - pm[j][None, :],
+                         _POS) for j in R]
+    rc_fb = [U[j] + pe[j] - pt[j] for j in R]
+    rc_mt = [pm[j] - pt[j] for j in R]
 
-    # EC rows: machine arcs in column order, then the fallback arc.
-    res_em = torch.where((rc_em < 0) & (exc_e[:, None] > 0), Uem - F, 0)
-    before = torch.cumsum(res_em, 1, dtype=I32) - res_em
-    ec_push = torch.clamp(torch.minimum(res_em, exc_e[:, None] - before),
-                          min=0)
-    left_e = exc_e - ec_push.sum(1, dtype=I32)
-    fb_push = torch.where((rc_fb < 0) & (left_e > 0),
-                          torch.minimum(supply - Ffb, left_e), 0)
+    # EC rows: machine arcs in column order (a block's after the blocks
+    # before it), then the fallback arc.
+    res_em = [torch.where((rc_em[j] < 0) & (exc_e[j][:, None] > 0),
+                          Uem[j] - F[j], 0) for j in R]
+    cs, _ = coll.scan([torch.cumsum(r, 1, dtype=I32) for r in res_em], 1)
+    before = [c - r for c, r in zip(cs, res_em)]
+    ec_push = [torch.clamp(torch.minimum(res_em[j],
+                                         exc_e[j][:, None] - before[j]),
+                           min=0) for j in R]
+    pushed = coll.reduce("sum", [p.sum(1, dtype=I32) for p in ec_push])
+    left_e = [e - p for e, p in zip(exc_e, pushed)]
+    fb_push = [torch.where((rc_fb[j] < 0) & (left_e[j] > 0),
+                           torch.minimum(supply[j] - Ffb[j], left_e[j]), 0)
+               for j in R]
 
-    # Machine rows: the sink arc first, then reverse arcs in EC order.
-    mt_push = torch.where((rc_mt < 0) & (exc_m > 0),
-                          torch.minimum(cap - Fmt, exc_m), 0)
-    left_m = exc_m - mt_push
-    res_me = torch.where((rc_em > 0) & (left_m[None, :] > 0), F, 0)
-    before_me = torch.cumsum(res_me, 0, dtype=I32) - res_me
-    me_push = torch.clamp(
-        torch.minimum(res_me, left_m[None, :] - before_me), min=0
-    )
+    # Machine rows (a block's own): the sink arc first, then reverse arcs
+    # in EC order.
+    mt_push = [torch.where((rc_mt[j] < 0) & (exc_m[j] > 0),
+                           torch.minimum(cap[j] - Fmt[j], exc_m[j]), 0)
+               for j in R]
+    left_m = [m - p for m, p in zip(exc_m, mt_push)]
+    me_push = []
+    for j in R:
+        res_me = torch.where((rc_em[j] > 0) & (left_m[j][None, :] > 0),
+                             F[j], 0)
+        before_me = torch.cumsum(res_me, 0, dtype=I32) - res_me
+        me_push.append(torch.clamp(
+            torch.minimum(res_me, left_m[j][None, :] - before_me), min=0))
 
-    # Sink row: reverse arcs to machines, then to EC fallbacks.
-    M = Fmt.shape[0]
-    res_t = torch.where(torch.cat([-rc_mt, -rc_fb]) < 0,
-                        torch.cat([Fmt, Ffb]), 0) * (exc_t > 0)
-    before_t = torch.cumsum(res_t, 0, dtype=I32) - res_t
-    t_push = torch.clamp(torch.minimum(res_t, exc_t - before_t), min=0)
+    # Sink row: reverse arcs to machines (in block order), then to EC
+    # fallbacks (after every machine's).
+    res_tm = [torch.where(-rc_mt[j] < 0, Fmt[j], 0) * (exc_t[j] > 0)
+              for j in R]
+    res_tf = [torch.where(-rc_fb[j] < 0, Ffb[j], 0) * (exc_t[j] > 0)
+              for j in R]
+    cs_tm, tot_tm = coll.scan([torch.cumsum(r, 0, dtype=I32) for r in res_tm],
+                              0)
+    t_push_m = [torch.clamp(torch.minimum(
+        res_tm[j], exc_t[j] - (cs_tm[j] - res_tm[j])), min=0) for j in R]
+    t_push_f = [torch.clamp(torch.minimum(
+        res_tf[j], exc_t[j] - (torch.cumsum(res_tf[j], 0, dtype=I32)
+                               + tot_tm[j] - res_tf[j])), min=0)
+        for j in R]
 
-    F_new = F + ec_push - me_push
-    Ffb_new = Ffb + fb_push - t_push[M:]
-    Fmt_new = Fmt + mt_push - t_push[:M]
-    exc_e, exc_m, exc_t = _excesses(F_new, Ffb_new, Fmt_new, supply=supply,
-                                    total=total)
+    F_new = [F[j] + ec_push[j] - me_push[j] for j in R]
+    Ffb_new = [Ffb[j] + fb_push[j] - t_push_f[j] for j in R]
+    Fmt_new = [Fmt[j] + mt_push[j] - t_push_m[j] for j in R]
+    exc_e, exc_m, exc_t = _block_excesses(F_new, Ffb_new, Fmt_new,
+                                          supply=supply, total=total,
+                                          coll=coll)
 
     if do_relabel:
         # Only active nodes with no admissible arc move, strictly down;
         # admissibility from the SAME rc tensors as the push, with the
         # post-push residuals.
-        has_em = (Uem - F_new) > 0
-        fb_open = supply - Ffb_new > 0
-        has_adm_e = ((rc_em < 0) & has_em).any(1) | ((rc_fb < 0) & fb_open)
-        maxcand_e = torch.maximum(
-            torch.where(has_em & adm, pm[None, :] - C, _NEG).amax(1),
-            torch.where(fb_open, pt - U, _NEG),
-        )
-        pe_new = _relabel_to(maxcand_e, has_adm_e, exc_e, pe, eps)
+        has_em = [(Uem[j] - F_new[j]) > 0 for j in R]
+        fb_open = [supply[j] - Ffb_new[j] > 0 for j in R]
+        any_e = coll.reduce("any", [((rc_em[j] < 0) & has_em[j]).any(1)
+                                    for j in R])
+        max_e = coll.reduce("amax", [
+            torch.where(has_em[j] & adm[j], pm[j][None, :] - C[j],
+                        _NEG).amax(1) for j in R])
+        any_t = coll.reduce("any", [((-rc_mt[j] < 0) & (Fmt_new[j] > 0)).any()
+                                    for j in R])
+        max_t = coll.reduce("amax", [torch.where(Fmt_new[j] > 0, pm[j],
+                                                 _NEG).amax() for j in R])
 
-        mt_open = cap - Fmt_new > 0
-        has_adm_m = ((rc_mt < 0) & mt_open) | ((rc_em > 0) & (F_new > 0)).any(0)
-        maxcand_m = torch.maximum(
-            torch.where(mt_open, pt, _NEG),
-            torch.where((F_new > 0) & adm, pe[:, None] + C, _NEG).amax(0),
-        )
-        pm_new = _relabel_to(maxcand_m, has_adm_m, exc_m, pm, eps)
+        def relabel(j):
+            has_adm_e = any_e[j] | ((rc_fb[j] < 0) & fb_open[j])
+            maxcand_e = torch.maximum(
+                max_e[j], torch.where(fb_open[j], pt[j] - U[j], _NEG))
 
-        res_t2 = torch.cat([Fmt_new, Ffb_new])
-        rc_t = torch.cat([-rc_mt, -rc_fb])
-        has_adm_t = ((rc_t < 0) & (res_t2 > 0)).any().reshape(1)
-        maxcand_t = torch.where(
-            res_t2 > 0, torch.cat([pm, pe + U]), _NEG
-        ).amax().reshape(1)
-        pt_new = _relabel_to(maxcand_t, has_adm_t, exc_t, pt, eps)
-        pe, pm, pt = pe_new, pm_new, pt_new
+            mt_open = cap[j] - Fmt_new[j] > 0
+            has_adm_m = (((rc_mt[j] < 0) & mt_open)
+                         | ((rc_em[j] > 0) & (F_new[j] > 0)).any(0))
+            maxcand_m = torch.maximum(
+                torch.where(mt_open, pt[j], _NEG),
+                torch.where((F_new[j] > 0) & adm[j],
+                            pe[j][:, None] + C[j], _NEG).amax(0),
+            )
+
+            fb_loaded = Ffb_new[j] > 0
+            has_adm_t = (any_t[j]
+                         | ((-rc_fb[j] < 0) & fb_loaded).any()).reshape(1)
+            maxcand_t = torch.maximum(
+                max_t[j], torch.where(fb_loaded, pe[j] + U[j], _NEG).amax()
+            ).reshape(1)
+            return (_relabel_to(maxcand_e, has_adm_e, exc_e[j], pe[j], eps),
+                    _relabel_to(maxcand_m, has_adm_m, exc_m[j], pm[j], eps),
+                    _relabel_to(maxcand_t, has_adm_t, exc_t[j], pt[j], eps))
+
+        pe, pm, pt = map(list, zip(*map(relabel, R)))
 
     counted = st[_ST_ITERS:_ST_ITERS + 1] + st[_ST_ACTIVE:_ST_ACTIVE + 1]
-    st = _phase_status(exc_e, exc_m, exc_t, counted)
+    st = _block_status(exc_e, exc_m, exc_t, counted, coll=coll)
     return F_new, Ffb_new, Fmt_new, pe, pm, pt, exc_e, exc_m, exc_t, st
 
 
-def _phase_enter(state, eps: int, *, ops: dict, refine: bool):
+def _block_enter(state, eps: int, *, ops: dict, refine: bool, coll):
     """A phase's entry: refine the carried flows to ``eps`` (restore
     eps-optimality with minimal disturbance to them) when ``refine``,
     then the excesses and the entering status.  Returns ``(state, exc_e,
     exc_m, exc_t, st)``."""
     F, Ffb, Fmt, pe, pm, pt = state
     C, U, Uem, supply, cap, adm, total = (
-        ops["C"], ops["U"], ops["Uem"], ops["supply"], ops["cap"],
-        ops["adm"], ops["total"],
-    )
+        ops[n] for n in ("C", "U", "Uem", "supply", "cap", "adm", "total"))
+    R = range(len(F))
     if refine:
         def refine_to(rc, flow, hi):
             return torch.where(rc < -eps, hi,
                                torch.where(rc > eps, 0, flow))
 
-        rc_em = torch.where(adm, C + pe[:, None] - pm[None, :], _POS)
-        F = refine_to(rc_em, F, Uem)
-        Ffb = refine_to(U + pe - pt, Ffb, supply)
-        Fmt = refine_to(pm - pt, Fmt, cap)
-    exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply, total=total)
-    st = _phase_status(exc_e, exc_m, exc_t,
-                       torch.zeros(1, dtype=I32, device=F.device))
+        F = [refine_to(torch.where(adm[j], C[j] + pe[j][:, None]
+                                   - pm[j][None, :], _POS), F[j], Uem[j])
+             for j in R]
+        Ffb = [refine_to(U[j] + pe[j] - pt[j], Ffb[j], supply[j]) for j in R]
+        Fmt = [refine_to(pm[j] - pt[j], Fmt[j], cap[j]) for j in R]
+    exc_e, exc_m, exc_t = _block_excesses(F, Ffb, Fmt, supply=supply,
+                                          total=total, coll=coll)
+    st = _block_status(exc_e, exc_m, exc_t,
+                       torch.zeros(1, dtype=I32, device=F[0].device),
+                       coll=coll)
     return (F, Ffb, Fmt, pe, pm, pt), exc_e, exc_m, exc_t, st
+
+
+def _block_operands(costs, supply, capacity, unsched_cost, arc_cap,
+                    init_prices, init_flows, init_fb, *, scale: int, coll):
+    """Scaled costs, arc capacities and the clipped warm state (the
+    reference's traced preamble, shared by every route), a list a block:
+    ``costs``, ``arc_cap`` and ``init_flows`` ``[E, Mb]`` blocks,
+    ``capacity`` ``[Mb]`` slices, ``init_prices`` ``[E + Mb + 1]`` (the
+    rows', the block's columns' and the sink's), the row vectors each
+    block's copy.  Returns ``(ops, state)``."""
+    R = range(len(costs))
+    E = costs[0].shape[0]
+    C = [torch.where(c >= INF_COST, INF_COST, c * scale) for c in costs]
+    U = [u * scale for u in unsched_cost]
+    Uem = [torch.minimum(torch.minimum(supply[j][:, None],
+                                       capacity[j][None, :]), arc_cap[j])
+           for j in R]
+    pe = [p[:E].clone() for p in init_prices]
+    pm = [p[E:E + c.shape[1]].clone() for p, c in zip(init_prices, costs)]
+    pt = [p[E + c.shape[1]:E + c.shape[1] + 1].clone()
+          for p, c in zip(init_prices, costs)]
+    # Clip the warm assignment into the current instance: a row whose
+    # carried flow exceeds its (possibly shrunken) supply drops wholesale.
+    F0 = [torch.minimum(torch.clamp(f, min=0), u)
+          for f, u in zip(init_flows, Uem)]
+    F0 = [torch.where(c < INF_COST, f, 0) for c, f in zip(costs, F0)]
+    rows = coll.reduce("sum", [f.sum(1, dtype=I32) for f in F0])
+    F0 = [torch.where((rows[j] <= supply[j])[:, None], F0[j], 0) for j in R]
+    fb = [torch.clamp(b, min=0) for b in init_fb]
+    rows = coll.reduce("sum", [f.sum(1, dtype=I32) for f in F0])
+    Ffb0 = [torch.minimum(fb[j], supply[j] - rows[j]) for j in R]
+    Fmt0 = [torch.minimum(f.sum(0, dtype=I32), c)
+            for f, c in zip(F0, capacity)]
+    return (
+        dict(C=C, U=U, Uem=Uem, supply=supply, cap=capacity,
+             adm=[c < INF_COST for c in costs]),
+        ([f.contiguous() for f in F0], Ffb0, Fmt0, pe, pm, pt),
+    )
+
+
+def _block_solve(costs, supply, capacity, unsched_cost, arc_cap,
+                 init_prices, init_flows, init_fb, eps_sched,
+                 max_iter_total: int, global_every: int, bf_max: int,
+                 adaptive_bf: int = 0, *, max_iter: int, scale: int,
+                 total: int, coll, iterate=None, global_update=None,
+                 stage: str = "solve.device.lax", telem_cap: int = 0):
+    """The ladder (the reference's ``_solve_device``) over column blocks
+    (the operands as ``_block_operands`` takes them): every phase of
+    ``eps_sched`` through ``_pr_phase``.  Tensors are int32; budgets and
+    knobs are host ints; ``total`` is the host's certified total supply.
+    ``iterate`` and ``global_update`` are block hooks and default to
+    ``_block_iteration`` and ``_block_global_update``.
+
+    Returns ``(F, Ffb, prices, stats)``: ``F`` the flow blocks, the rest
+    int32 on block 0's device, ``prices`` the whole ``[E + M + 1]``
+    vector, ``stats`` ``[iters, bf_sweeps, clean, phase_iters..., ring...]``,
+    where ``ring`` is the flattened [TELEM_ROWS, telem_cap] telemetry ring,
+    with a row more a block over more than one block (absent when
+    ``telem_cap`` is 0: no ring is threaded then).
+    """
+    ops, state = _block_operands(
+        costs, supply, capacity, unsched_cost, arc_cap, init_prices,
+        init_flows, init_fb, scale=scale, coll=coll,
+    )
+    ops["total"] = total
+    dev = costs[0].device
+    lanes = len(costs) if len(costs) > 1 else 0
+    unroll = iter_unroll(dev)
+    iters = 0
+    sweeps = torch.zeros(1, dtype=I32, device=dev)
+    ring = (torch.zeros((TELEM_ROWS + lanes, telem_cap), dtype=I32,
+                        device=dev) if telem_cap else None)
+    phase_iters = []
+    for eps in eps_sched:
+        state, it = _pr_phase(
+            state, int(eps), ops=ops,
+            iterate=iterate or partial(_block_iteration, coll=coll),
+            global_update=(global_update
+                           or partial(_block_global_update, coll=coll)),
+            enter=partial(_block_enter, coll=coll), sweeps=sweeps,
+            total_iters=iters, max_iter=max_iter,
+            max_iter_total=max_iter_total, global_every=global_every,
+            bf_max=bf_max, adaptive=adaptive_bf, unroll=unroll, stage=stage,
+            ring=ring,
+        )
+        iters += it
+        phase_iters.append(it)
+    F, Ffb, Fmt, pe, pm, pt = state
+    exc_e, exc_m, exc_t = _block_excesses(F, Ffb, Fmt, supply=supply,
+                                          total=total, coll=coll)
+    clean = ~((exc_e[0] != 0).any()
+              | coll.reduce("any", [(m != 0).any() for m in exc_m],
+                            lead_only=True)
+              | (exc_t[0] != 0).any())
+    stats = torch.cat([
+        torch.tensor([iters], dtype=I32, device=dev), sweeps,
+        clean.to(I32).reshape(1),
+        torch.tensor(phase_iters, dtype=I32, device=dev),
+    ] + ([] if ring is None else [ring.reshape(-1)]))
+    return F, Ffb[0], torch.cat([pe[0], coll.gather(pm), pt[0]]), stats
+
+
+# The one-device names: each step on one device, on tensors (the kernel
+# routes' layout, and ``_pr_phase``'s by default).
+_excesses = _one_device(_block_excesses)
+_phase_status = _one_device(_block_status)
+_phase_enter = _one_device(_block_enter)
+_pr_iteration = _one_device(_block_iteration)
+_global_update = _one_device(_block_global_update)
+_prepare_operands = _one_device(_block_operands)
+_solve_device = _one_device(_block_solve)
 
 
 def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
@@ -773,15 +1056,12 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
     ``global_update``, whose iteration the host knows exactly, since it
     reads the status before any update.  Returns the new state and the
     phase's iterations.  ``enter`` is the phase's entry
-    (``_phase_enter`` or a sharded solve's); the state, the operands and
-    the hooks may be any layout the three hooks agree on, so long as the
-    status and ``sweeps`` are tensors on one device.
+    (``_phase_enter``, or ``_block_enter`` over blocks); the state, the
+    operands and the hooks may be any layout the three hooks agree on, so
+    long as the status and ``sweeps`` are tensors on one device.
     """
     dev = sweeps.device
-    C, U, Uem, supply, cap, adm, total = (
-        ops["C"], ops["U"], ops["Uem"], ops["supply"], ops["cap"],
-        ops["adm"], ops["total"],
-    )
+    arcs = {n: ops[n] for n in ("C", "U", "Uem", "supply", "cap", "adm")}
     # The refinement must not fire once the cross-phase budget is
     # (nearly) spent: nothing would be left to repair the excesses it
     # creates.
@@ -817,9 +1097,8 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
                 (F, Ffb, Fmt, pe2, pm2, pt2, exc_e, exc_m, exc_t,
                  st) = iterate(
                     F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t, st,
-                    eps=eps, do_relabel=not fire, C=C, U=U, Uem=Uem,
-                    supply=supply, cap=cap, adm=adm, total=total,
-                    ring=ring, ring_base=total_iters,
+                    eps=eps, do_relabel=not fire, total=ops["total"],
+                    ring=ring, ring_base=total_iters, **arcs,
                 )
             if fire:
                 slot = (0 if ring is None
@@ -827,9 +1106,8 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
                 with _loop_stage(f"{stage}.global_update", dev):
                     pe, pm, pt = global_update(
                         F, Ffb, Fmt, pe, pm, pt, exc_e, exc_m, exc_t,
-                        sweeps, C=C, U=U, Uem=Uem, supply=supply, cap=cap,
-                        adm=adm, eps=eps, bf_max=bf_max, ring=ring,
-                        ring_slot=slot,
+                        sweeps, eps=eps, bf_max=bf_max, ring=ring,
+                        ring_slot=slot, **arcs,
                     )
                 next_gu, gap, last_exc = _gu_advance(
                     tot, it, gap, last_exc, global_every
@@ -840,85 +1118,6 @@ def _pr_phase(state, eps: int, *, ops: dict, iterate, global_update,
     with _loop_stage(f"{stage}.other", dev):
         it = int(_host_read(st[_ST_ITERS]))
     return (F, Ffb, Fmt, pe, pm, pt), it
-
-
-def _prepare_operands(costs, supply, capacity, unsched_cost, arc_cap,
-                      init_prices, init_flows, init_fb, *, scale: int):
-    """Scaled costs, arc capacities and the clipped warm state (the
-    reference's traced preamble, shared by every route)."""
-    E, M = costs.shape
-    C = torch.where(costs >= INF_COST, INF_COST, costs * scale)
-    U = unsched_cost * scale
-    Uem = torch.minimum(
-        torch.minimum(supply[:, None], capacity[None, :]), arc_cap
-    )
-    pe = init_prices[:E].clone()
-    pm = init_prices[E:E + M].clone()
-    pt = init_prices[E + M:E + M + 1].clone()
-    # Clip the warm assignment into the current instance: a row whose
-    # carried flow exceeds its (possibly shrunken) supply drops wholesale.
-    F0 = torch.minimum(torch.clamp(init_flows, min=0), Uem)
-    F0 = torch.where(costs < INF_COST, F0, 0)
-    F0 = torch.where((F0.sum(1, dtype=I32) <= supply)[:, None], F0, 0)
-    Ffb0 = torch.minimum(torch.clamp(init_fb, min=0),
-                         supply - F0.sum(1, dtype=I32))
-    Fmt0 = torch.minimum(F0.sum(0, dtype=I32), capacity)
-    return (
-        dict(C=C, U=U, Uem=Uem, supply=supply, cap=capacity,
-             adm=costs < INF_COST),
-        (F0.contiguous(), Ffb0, Fmt0, pe, pm, pt),
-    )
-
-
-def _solve_device(costs, supply, capacity, unsched_cost, arc_cap,
-                  init_prices, init_flows, init_fb, eps_sched,
-                  max_iter_total: int, global_every: int, bf_max: int,
-                  adaptive_bf: int = 0, *, max_iter: int, scale: int,
-                  total: int, iterate=None, global_update=None,
-                  stage: str = "solve.device.lax", telem_cap: int = 0):
-    """The plain torch ladder (the reference's ``_solve_device``): every
-    phase of ``eps_sched`` through ``_pr_phase``.  Tensors are int32 on
-    one device; budgets and knobs are host ints; ``total`` is the host's
-    certified total supply.  ``iterate`` and ``global_update`` default to
-    ``_pr_iteration`` and ``_global_update``.
-
-    Returns ``(F, Ffb, prices, stats)``: ``stats`` is int32
-    ``[iters, bf_sweeps, clean, phase_iters..., ring...]`` on the device,
-    where ``ring`` is the flattened [TELEM_ROWS, telem_cap] telemetry ring
-    (absent when ``telem_cap`` is 0: no ring is threaded then).
-    """
-    E, M = costs.shape
-    ops, state = _prepare_operands(
-        costs, supply, capacity, unsched_cost, arc_cap, init_prices,
-        init_flows, init_fb, scale=scale,
-    )
-    ops["total"] = total
-    unroll = iter_unroll(costs.device)
-    iters = 0
-    sweeps = torch.zeros(1, dtype=I32, device=costs.device)
-    ring = (torch.zeros((TELEM_ROWS, telem_cap), dtype=I32,
-                        device=costs.device) if telem_cap else None)
-    phase_iters = []
-    for eps in eps_sched:
-        state, it = _pr_phase(
-            state, int(eps), ops=ops, iterate=iterate or _pr_iteration,
-            global_update=global_update or _global_update, sweeps=sweeps,
-            total_iters=iters, max_iter=max_iter,
-            max_iter_total=max_iter_total, global_every=global_every,
-            bf_max=bf_max, adaptive=adaptive_bf, unroll=unroll, stage=stage,
-            ring=ring,
-        )
-        iters += it
-        phase_iters.append(it)
-    F, Ffb, Fmt, pe, pm, pt = state
-    exc_e, exc_m, exc_t = _excesses(F, Ffb, Fmt, supply=supply, total=total)
-    clean = ~((exc_e != 0).any() | (exc_m != 0).any() | (exc_t != 0).any())
-    stats = torch.cat([
-        torch.tensor([iters], dtype=I32, device=F.device), sweeps,
-        clean.to(I32).reshape(1),
-        torch.tensor(phase_iters, dtype=I32, device=F.device),
-    ] + ([] if ring is None else [ring.reshape(-1)]))
-    return F, Ffb, torch.cat([pe, pm, pt]), stats
 
 
 def route_for(e_pad: int, m_pad: int, device) -> str:
@@ -962,9 +1161,8 @@ def _solve_device_packed(big, vec: np.ndarray, *, max_iter: int,
     max_iter_total, global_every, bf_max, adaptive_bf).  No route writes
     into ``big``'s planes.  Returns the flow
     matrix on the device and ONE host read of the small result vector
-    (fallback | prices | iters, bf, clean, unchanged | per-phase
-    iterations | the flattened telemetry ring, empty when ``telem_cap`` is
-    0), the reference's layout, so the decode ports line for line."""
+    (``_read_small``; the ring empty when ``telem_cap`` is 0), the
+    reference's layout, so the decode ports line for line."""
     _, E, M = big.shape
     o = 0
     cuts = {}
@@ -989,11 +1187,23 @@ def _solve_device_packed(big, vec: np.ndarray, *, max_iter: int,
         v("prices"), big_d[2], v("fb"), eps_sched, max_iter_total,
         global_every, bf_max, adaptive_bf, max_iter=max_iter, scale=scale,
         total=total, telem_cap=telem_cap)
-    # A certified warm round often returns the warm start bit-for-bit: the
-    # host already owns that matrix, so flag it and skip the [E, M] read.
-    unchanged = (F == big_d[2]).all().to(I32).reshape(1)
-    small = torch.cat([Ffb, prices, stats[:3], unchanged, stats[3:]])
-    return F, _host_read(small)
+    return F, _read_small([F], [big_d[2]], Ffb, prices, stats,
+                          _Collectives([F.device]))
+
+
+def _read_small(F, F_init, Ffb, prices, stats, coll) -> np.ndarray:
+    """ONE host read of a device solve's small result vector: fallback |
+    prices | iters, bf, clean, unchanged | per-phase iterations | the
+    flattened telemetry ring (empty when the ring is off), the
+    reference's layout.  ``F`` and ``F_init`` are the flow blocks out and
+    in.  A certified warm round often returns the warm start bit-for-bit:
+    the host already owns that matrix, so ``unchanged`` flags it and the
+    [E, M] read is skipped."""
+    unchanged = coll.reduce("all", [(f == f0).all()
+                                    for f, f0 in zip(F, F_init)],
+                            lead_only=True).to(I32).reshape(1)
+    return _host_read(torch.cat([Ffb, prices, stats[:3], unchanged,
+                                 stats[3:]]))
 
 
 # ---------------------------------------------------------------- resident
@@ -2087,6 +2297,121 @@ def _repair_start_candidate(init_flows, init_unsched, init_prices, *,
 
 
 
+def _checked_instance(costs, supply, capacity, unsched_cost,
+                      global_update_every: int, *, site: str):
+    """The instance as int32 arrays, checked.  No global updates at all is
+    non-convergent: fail fast.  Device reductions over flows and supplies
+    (a sharded solve's per-shard partials too) accumulate in int32; flow
+    conservation bounds every such sum by the total supply, so this one
+    host-boundary certificate, at ``site``, covers them all."""
+    if global_update_every < 1:
+        raise ValueError(
+            f"global_update_every must be >= 1, got {global_update_every}"
+        )
+    costs, supply, capacity, unsched_cost = (
+        np.asarray(a, dtype=np.int32)
+        for a in (costs, supply, capacity, unsched_cost))
+    certify_i32_total(supply, site=site)
+    return costs, supply, capacity, unsched_cost
+
+
+def _pad_instance(costs, supply, capacity, unsched_cost, arc_capacity,
+                  e_pad: int, m_pad: int):
+    """The instance at the padded shape: ``big``, the three ``[e_pad,
+    m_pad]`` operands as planes of ONE buffer (costs, arc capacities and
+    the flow plane the start fills: one upload, see
+    ``_solve_device_packed``; host code works on the views), the padded
+    supply, capacity and unscheduled costs, and ``arc_capacity`` as int32,
+    checked.  Padded rows have zero supply; padded columns have zero
+    capacity and no admissible arcs — both inert."""
+    E, M = costs.shape
+    if arc_capacity is not None:
+        arc_capacity = np.asarray(arc_capacity, dtype=np.int32)
+        if (arc_capacity < 0).any():
+            raise ValueError("arc_capacity must be non-negative")
+    big = np.zeros((3, e_pad, m_pad), dtype=np.int32)
+    big[0].fill(INF_COST)
+    big[0, :E, :M] = costs
+    big[1, :E, :M] = (UNBOUNDED_ARC_CAP if arc_capacity is None
+                      else arc_capacity)
+    supply_p = np.pad(supply, (0, e_pad - E))
+    unsched_p = np.pad(unsched_cost, (0, e_pad - E), constant_values=1)
+    capacity_p = np.pad(capacity, (0, m_pad - M))
+    return big, supply_p, capacity_p, unsched_p, arc_capacity
+
+
+def _pad_start(big, E: int, M: int, init_flows, init_unsched, init_prices):
+    """The start at ``big``'s padded shape: its flows into plane 2, and
+    ``(fallback flows, prices, init_prices normalized)``.  Normalized warm
+    prices are <= 0 with max 0, so the zero-filled padded rows and columns
+    sit exactly at the anchor and stay inert."""
+    _, e_pad, m_pad = big.shape
+    if init_flows is not None:
+        big[2, :E, :M] = init_flows
+    fb_p = np.zeros(e_pad, dtype=np.int32)
+    if init_unsched is not None:
+        fb_p[:E] = init_unsched
+    prices_p = np.zeros(e_pad + m_pad + 1, dtype=np.int32)
+    if init_prices is not None:
+        init_prices = normalize_prices(init_prices)
+        prices_p[:E] = init_prices[:E]
+        prices_p[e_pad:e_pad + M] = init_prices[E:E + M]
+        prices_p[e_pad + m_pad] = init_prices[E + M]
+    return fb_p, prices_p, init_prices
+
+
+def _finish_solve(small, start_flows, fetch_flows, *, costs, supply,
+                  capacity, unsched_cost, arc_capacity, scale, e_pad: int,
+                  m_pad: int, impl: str, telem_cap: int, eps0_cold: int,
+                  eps0: int, inv_perm=None) -> TransportSolution:
+    """The certified solution of a device solve from its small result
+    vector (``_read_small``'s layout) and its flows at the padded shape:
+    ``fetch_flows()``, or, when the solve returned the warm start
+    bit-for-bit, a copy of the host's own ``start_flows`` instead of a
+    read of [e_pad, m_pad] back (a copy: callers own their return value,
+    while the start plane views the operand buffer).  ``inv_perm`` puts a
+    permuted padded machine axis back in column order.  The route's
+    iterations and sweeps are counted."""
+    E, M = costs.shape
+    o = 2 * e_pad + m_pad + 1
+    unsched = small[:E]
+    prices_full = small[e_pad:o]
+    iters, bf, clean, unchanged = (int(small[o]), int(small[o + 1]),
+                                   bool(small[o + 2]), bool(small[o + 3]))
+    _Telemetry.route_iters[impl] += iters
+    _Telemetry.route_sweeps[impl] += bf
+    phase_iters = small[o + 4:o + 4 + NUM_PHASES]
+    telemetry = None
+    if telem_cap:
+        # The ring is the vector's tail; a sharded solve's has a lane a
+        # shard after the shared rows.
+        ring = small[o + 4 + NUM_PHASES:].reshape(-1, telem_cap)
+        telemetry = decode_telemetry(ring, iters,
+                                     telem_shards=len(ring) - TELEM_ROWS)
+    flows = start_flows.copy() if unchanged else fetch_flows()
+    if inv_perm is not None:
+        flows = flows[:, inv_perm]
+        prices_full[e_pad:e_pad + m_pad] = (
+            prices_full[e_pad:e_pad + m_pad][inv_perm]
+        )
+    prices_out = np.concatenate([
+        prices_full[:E], prices_full[e_pad:e_pad + M],
+        prices_full[e_pad + m_pad:],
+    ])
+    sol = _host_finalize(
+        flows[:E, :M], unsched, prices_out, iters,
+        costs=costs, supply=supply, capacity=capacity,
+        unsched_cost=unsched_cost, scale=scale, clean=clean,
+        arc_capacity=arc_capacity, bf_sweeps=bf,
+        phase_iters=tuple(int(x) for x in phase_iters),
+    )
+    # Telemetry: how many cold-ladder rungs the start skipped (the
+    # device ladder actually entered at ``eps0``).
+    sol.entry_phase = ladder_entry_phase(eps0_cold, eps0)
+    sol.telemetry = telemetry
+    return sol
+
+
 def solve_transport(
     costs: np.ndarray,
     supply: np.ndarray,
@@ -2127,19 +2452,9 @@ def solve_transport(
     ``gap_bound = inf``.
     """
     dev = resolve_device(device)
-    if global_update_every < 1:
-        # No global updates at all is non-convergent: fail fast.
-        raise ValueError(
-            f"global_update_every must be >= 1, got {global_update_every}"
-        )
-    costs = np.asarray(costs, dtype=np.int32)
-    supply = np.asarray(supply, dtype=np.int32)
-    capacity = np.asarray(capacity, dtype=np.int32)
-    unsched_cost = np.asarray(unsched_cost, dtype=np.int32)
-    # Device reductions over flows/supplies accumulate in int32; flow
-    # conservation bounds every such sum by the total supply, so this one
-    # host-boundary certificate covers them all.
-    certify_i32_total(supply, site="solve_transport.supply")
+    costs, supply, capacity, unsched_cost = _checked_instance(
+        costs, supply, capacity, unsched_cost, global_update_every,
+        site="solve_transport.supply")
     E, M = costs.shape
     if E == 0 or M == 0:
         # Degenerate rounds (idle cluster / no machines yet): everything
@@ -2156,27 +2471,10 @@ def solve_transport(
         )
     # Pad EC rows to a power of two (min 8) and machine columns to a
     # quarter-octave bucket (bucket_size), exactly as the reference does:
-    # the padded shape fixes the scale and the kernel route.  Padded rows
-    # have zero supply; padded columns have zero capacity and no
-    # admissible arcs — both inert.
+    # the padded shape fixes the scale and the kernel route.
     E_pad, M_pad = padded_shape(E, M)
-    # The three [E_pad, M_pad] operands are planes of ONE buffer (one
-    # upload; see _solve_device_packed); host code works on the views.
-    big = np.empty((3, E_pad, M_pad), dtype=np.int32)
-    costs_p, arc_p, flows_p = big[0], big[1], big[2]
-    costs_p.fill(INF_COST)
-    costs_p[:E, :M] = costs
-    supply_p = np.zeros(E_pad, dtype=np.int32)
-    supply_p[:E] = supply
-    unsched_p = np.ones(E_pad, dtype=np.int32)
-    unsched_p[:E] = unsched_cost
-    capacity_p = np.zeros(M_pad, dtype=np.int32)
-    capacity_p[:M] = capacity
-
-    if arc_capacity is not None:
-        arc_capacity = np.asarray(arc_capacity, dtype=np.int32)
-        if (arc_capacity < 0).any():
-            raise ValueError("arc_capacity must be non-negative")
+    big, supply_p, capacity_p, unsched_p, arc_capacity = _pad_instance(
+        costs, supply, capacity, unsched_cost, arc_capacity, E_pad, M_pad)
     was_warm = init_flows is not None or init_prices is not None
     with _stage("solve.greedy_start"):
         init_flows, init_unsched, init_prices, eps_start = maybe_greedy_start(
@@ -2186,31 +2484,11 @@ def solve_transport(
         )
     with _stage("solve.validate"):
         scale, eps_sched, eps0_cold = _host_validate(
-            costs_p, supply_p, capacity_p, unsched_p, scale, eps_start,
+            big[0], supply_p, capacity_p, unsched_p, scale, eps_start,
             max_cost_hint,
         )
-    prices_p = np.zeros(E_pad + M_pad + 1, dtype=np.int32)
-    if init_prices is not None:
-        # Normalized warm prices are <= 0 with max 0, so the zero-filled
-        # padded rows/columns sit exactly at the anchor and stay inert.
-        init_prices = normalize_prices(init_prices)
-        prices_p[:E] = init_prices[:E]
-        prices_p[E_pad:E_pad + M] = init_prices[E:E + M]
-        prices_p[E_pad + M_pad] = init_prices[E + M]
-
-    if arc_capacity is not None:
-        arc_p.fill(0)
-        arc_p[:E, :M] = arc_capacity
-    else:
-        arc_p.fill(0)
-        arc_p[:E, :M] = UNBOUNDED_ARC_CAP
-
-    flows_p.fill(0)
-    if init_flows is not None:
-        flows_p[:E, :M] = init_flows
-    fb_p = np.zeros(E_pad, dtype=np.int32)
-    if init_unsched is not None:
-        fb_p[:E] = init_unsched
+    fb_p, prices_p, init_prices = _pad_start(
+        big, E, M, init_flows, init_unsched, init_prices)
 
     # Host short-circuit: when the start state (remapped warm frame or
     # the greedy cold start) is already feasible AND certifies EXACTLY
@@ -2368,51 +2646,24 @@ def solve_transport(
             big_op, vec, max_iter=max_iter_per_phase, scale=int(scale),
             impl=impl, device=dev, telem_cap=telem_cap,
         )
-    o = E_pad
-    unsched = small[:E]
-    prices_full = small[o:o + E_pad + M_pad + 1]
-    o += E_pad + M_pad + 1
-    iters, bf, clean, unchanged = (int(small[o]), int(small[o + 1]),
-                                   bool(small[o + 2]), bool(small[o + 3]))
-    _Telemetry.route_iters[impl] += iters
-    _Telemetry.route_sweeps[impl] += bf
-    phase_iters = small[o + 4:o + 4 + NUM_PHASES]
-    telemetry = None
-    if telem_cap:
-        ring_flat = small[o + 4 + NUM_PHASES:
-                          o + 4 + NUM_PHASES + TELEM_ROWS * telem_cap]
-        telemetry = decode_telemetry(
-            ring_flat.reshape(TELEM_ROWS, telem_cap), iters)
-    if unchanged:
-        # The solve returned the warm start bit-for-bit; reuse the host's
-        # own copy instead of reading [E_pad, M_pad] back.  Copy: callers
-        # own their return value, while flows_p views the operand buffer.
-        flows = flows_p[:E, :M].copy()
-    else:
+
+    def fetch_flows():
         # The full padded matrix: the resident fold needs all of it.
         with _stage("solve.fetch_flows"):
             F_full = _host_read(F_dev)
-        flows = F_full[:E, :M]
         if use_resident:
             # Fold the result into resident plane 2 so the next warm
             # solve's init flows diff clean (no re-upload).
             _resident_fold_result((E_pad, M_pad), F_dev, F_full)
-    prices_out = np.concatenate([
-        prices_full[:E], prices_full[E_pad:E_pad + M],
-        prices_full[E_pad + M_pad:],
-    ])
-    sol = _host_finalize(
-        flows, unsched, prices_out, iters,
-        costs=costs, supply=supply, capacity=capacity,
-        unsched_cost=unsched_cost, scale=scale, clean=clean,
-        arc_capacity=arc_capacity, bf_sweeps=bf,
-        phase_iters=tuple(int(x) for x in phase_iters),
+        return F_full
+
+    return _finish_solve(
+        small, big[2], fetch_flows, costs=costs, supply=supply,
+        capacity=capacity, unsched_cost=unsched_cost,
+        arc_capacity=arc_capacity, scale=scale, e_pad=E_pad, m_pad=M_pad,
+        impl=impl, telem_cap=telem_cap, eps0_cold=eps0_cold,
+        eps0=int(eps_sched[0]),
     )
-    # Telemetry: how many cold-ladder rungs the start skipped (the
-    # device ladder actually entered at eps_sched[0]).
-    sol.entry_phase = ladder_entry_phase(eps0_cold, int(eps_sched[0]))
-    sol.telemetry = telemetry
-    return sol
 
 
 def _lift_excluded_prices(pe, pm_sel, pt, sel, *, costs, capacity, scale,

@@ -203,7 +203,7 @@ def test_no_plane_crosses_shards(monkeypatch):
     once, in blocks, and a mesh of k > 1 shards of one device runs the
     sharded route, never the one-device fallback."""
     parts, fetches = [], []
-    stack, read_blocks = TS._Collectives._stack, TS._host_read_blocks
+    stack, read_blocks = T._Collectives._stack, TS._host_read_blocks
 
     def spy_stack(self, ps):
         parts.extend(p.dim() for p in ps)
@@ -213,7 +213,7 @@ def test_no_plane_crosses_shards(monkeypatch):
         fetches.append([tuple(b.shape) for b in blocks])
         return read_blocks(blocks, axis)
 
-    monkeypatch.setattr(TS._Collectives, "_stack", spy_stack)
+    monkeypatch.setattr(T._Collectives, "_stack", spy_stack)
     monkeypatch.setattr(TS, "_host_read_blocks", spy_read)
     inst = _contended_instance(4, 12, 64)
     routes = dict(T._Telemetry.routes)
